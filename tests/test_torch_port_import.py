@@ -33,6 +33,9 @@ def _imported_roots(path: Path):
 def test_port_sources_import_no_jax_and_no_reference_package():
     files = sorted((ROOT / "tpuslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"tpuslam_torch/ops/warp.py", "tpuslam_torch/ops/reproj.py",
+            "tpuslam_torch/ops/build.py"} <= names
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -126,16 +129,20 @@ def test_entry_points_turn_tf32_off_and_restore_it():
 
 def test_unported_options_are_refused(tmp_path):
     """Options whose kernels or modules are not ported yet raise
-    NotImplementedError instead of being ignored."""
+    NotImplementedError instead of being ignored; the flags of the ported
+    fused stack (K4-K8) are accepted and mapped."""
     from tpuslam_torch.config import Config
     from tpuslam_torch.config.schema import DepthPoseConfig, SlamConfig
     from tpuslam_torch.slam import Slam
     from tpuslam_torch.train.steps import loss_config
 
-    for flag in ("pallas_packed", "pallas_seg_skip", "pallas_tall", "pallas_proj",
-                 "pallas_fused_loss", "pallas_fused_bwd"):
+    for flag in ("pallas_packed", "pallas_seg_skip"):
         with pytest.raises(NotImplementedError, match=flag):
             loss_config(DepthPoseConfig(**{flag: True}))
+    fused = ("pallas_tall", "pallas_proj", "pallas_fused_loss", "pallas_fused_bwd")
+    for flag in fused:
+        cfg = loss_config(DepthPoseConfig(**{flag: True}))
+        assert [getattr(cfg, f) for f in fused] == [f == flag for f in fused], flag
     for slam_cfg in (dict(do_loop_closures=True), dict(use_expert=True),
                      dict(async_adaptation=True), dict(pipeline_depth=1)):
         cfg = Config()

@@ -63,6 +63,17 @@ def project_3d(
     return xy.reshape(points.shape[0], 2, height, width).permute(0, 2, 3, 1)
 
 
+def projection_affine(K: torch.Tensor, inv_K: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """`backproject_depth` + `project_3d` collapsed into one affine camera
+    map per sample, (B, 12): with P = (K @ T)[:3] and A = P[:, :3] @
+    inv_K[:3, :3], columns 0-8 hold A row-major and 9-11 hold P[:, 3], so
+    that cam = d * A @ (u, v, 1) + P[:, 3] before the z-clamped divide.  The
+    operand of the in-kernel-projection warp (K5, `ops/warp.py`)."""
+    P = torch.matmul(K, T)[:, :3, :]  # (B, 3, 4)
+    A = torch.matmul(P[:, :, :3], inv_K[:, :3, :3])
+    return torch.cat([A.reshape(K.shape[0], 9), P[:, :, 3]], dim=1)
+
+
 def _clip(v: torch.Tensor, hi: float) -> torch.Tensor:
     # maximum/minimum rather than clamp: at an exact tie they pass half the
     # gradient, like jnp.clip, which gives the 0.5 edge subgradient of the

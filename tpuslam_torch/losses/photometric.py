@@ -5,7 +5,9 @@ per-frame SSIM + L1 reprojection, min-reprojection auto-masking with
 identity tie-break noise, edge-aware disparity smoothness, the velocity
 (translation-magnitude) term and the optional log-mean-disparity prior.
 The expressions follow the JAX package's order, so their type promotion is
-the same: a bf16 warped image keeps its SSIM pools in bf16 in both.
+the same: a bf16 warped image keeps its SSIM pools in bf16 in both.  Where
+pred equals target exactly, the L1 term's and the SSIM clip's subgradients
+are jnp.abs's (+1 at 0) and jnp.clip's (0.5 at a bound), not torch's.
 """
 from __future__ import annotations
 
@@ -16,6 +18,17 @@ import torch
 
 _SSIM_C1 = 0.01**2
 _SSIM_C2 = 0.03**2
+
+
+def _abs(u: torch.Tensor) -> torch.Tensor:
+    """|u| whose gradient at u = 0 is +1, as jnp.abs's (torch.abs gives 0)."""
+    return torch.where(u >= 0, u, -u)
+
+
+def _clamp01(v: torch.Tensor) -> torch.Tensor:
+    """clip(v, 0, 1) whose gradient at an exact bound is 0.5, as jnp.clip's
+    (torch.clamp passes all of it)."""
+    return torch.minimum(torch.maximum(v, v.new_zeros(())), v.new_ones(()))
 
 
 def _reflect_pad_hw(x: torch.Tensor) -> torch.Tensor:
@@ -42,12 +55,12 @@ def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     sigma_xy = _avg_pool3(x * y) - mu_x * mu_y
     n = (2 * mu_x * mu_y + _SSIM_C1) * (2 * sigma_xy + _SSIM_C2)
     d = (mu_x * mu_x + mu_y * mu_y + _SSIM_C1) * (sigma_x + sigma_y + _SSIM_C2)
-    return torch.clamp((1 - n / d) / 2, 0.0, 1.0)
+    return _clamp01((1 - n / d) / 2)
 
 
 def reprojection_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """0.85 * SSIM + 0.15 * L1, channel-averaged -> (B, H, W)."""
-    l1 = (target - pred).abs().mean(-1)
+    l1 = _abs(target - pred).mean(-1)
     ssim_l = ssim(pred, target).mean(-1)
     return 0.85 * ssim_l + 0.15 * l1
 

@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernel libraries.
+
+Each source in `csrc/` is compiled by nvcc for `sm_90a` into a shared
+library with a plain C interface, under `build/`, named by the hash of the
+source and its flags, at first use; it is then loaded with ctypes.  No
+PyTorch header is included, so a build takes seconds.  `build_kernels()`
+starts one nvcc for every source at once and waits for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+
+# library name -> (source file in csrc/, extra nvcc flags)
+SOURCES = {
+    "warp": ("warp.cu", ()),
+    # the SSIM moments cancel (E[x^2] - mu^2): without FMA contraction the
+    # kernels round like the plain torch version, op by op
+    "reproj": ("reproj.cu", ("-fmad=false",)),
+}
+
+# seconds nvcc took for each library built by this process
+build_seconds: Dict[str, float] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
+
+
+def _library_path(name: str) -> Path:
+    source, flags = SOURCES[name]
+    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"libtpuslam_{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_kernels(names: Optional[Iterable[str]] = None) -> None:
+    """Compile the libraries that are not built yet, all nvcc processes at
+    once; raise with the compiler's output if any fails."""
+    jobs = []
+    for name in (SOURCES if names is None else names):
+        so = _library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        source, flags = SOURCES[name]
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, proc, t0 in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name][0]} ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_kernels([name])
+        lib = _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+    return lib

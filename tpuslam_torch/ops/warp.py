@@ -1,127 +1,131 @@
-"""Bilinear warp kernel K1 (CUDA C++, `csrc/warp.cu`) and its plain version.
+"""Bilinear warp kernels K1, K4 and K5 (CUDA C++, `csrc/warp.cu`) and their
+plain versions.
 
-Counterpart of `tpuslam/ops/pallas_warp.py::pallas_warp_static_fused`.  Under
-autograd the kernel runs with taps: it writes the warped image and the
-per-channel differentials d(out)/dx, d(out)/dy, so the backward is the
-elementwise contraction sum_c g * d, gated by `live` (1 inside, 0.5 at an
-exact edge, 0 outside), with no second gather.  Without autograd it runs
-without taps (the TPU package's group-skip kernel).  Sources get no
-gradient: camera images are inputs, never parameters.
+Counterparts of `tpuslam/ops/pallas_warp.py`:
+
+* K1 `pallas_warp_static_fused` (`warp`): src (N, H, W, C) at coords
+  (N, H, W, 2);
+* K4 `pallas_warp_tall` (`warp_tall`): the 2*B distinct source frames, read
+  through the index map n -> (n // (S*B)) * B + n % B of the
+  [direction, scale, batch] stack, never tiled S-fold;
+* K5 `pallas_warp_tall_proj` (`warp_tall_proj`): K4 with the coordinates
+  computed in the kernel from depth (S*B, H, W, 1) and the affine camera maps
+  ab (2*B, 12) of `geometry.camera.projection_affine`.
+
+One kernel serves all three.  Under autograd it runs with taps: it writes the
+warped image and the per-channel differentials d(out)/dx, d(out)/dy, so the
+backward is the elementwise contraction sum_c g * d, gated by `live` (1
+inside, 0.5 at an exact edge, 0 outside), with no second gather.  K5's
+backward then chains the coordinate cotangents to depth and ab through
+autograd of the plain projection `proj_coords_plain` (in the JAX package
+that chain is XLA, outside any kernel).  Without autograd the kernel runs
+without taps.  Sources get no gradient: camera images are inputs, never
+parameters.
 
 The kernel is exact for any coordinates, like `bilinear_sampler`; the TPU
-kernel clamps flow that leaves its (8 + 16 * extra_tiles)-row x 384-column
-window, which is why `pallas_group_skip` and `pallas_extra_tiles` do not
-apply here.
+kernels clamp flow that leaves their source window, which is why
+`pallas_group_skip` and `pallas_extra_tiles` do not apply here.
 
-The library is built from the repository's sources with nvcc at first use
-into `build/` and loaded with ctypes.  A CPU tensor takes the plain version
-(`warp_static_fused_plain` with taps, `bilinear_sampler` without); a CUDA
-tensor launches the kernel, on its own device, or raises.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel, on
+its own device, or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 from tpuslam_torch.geometry.camera import bilinear_blend, bilinear_sampler, bilinear_taps
+from tpuslam_torch.ops import build
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "warp.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# Launch counts of the CUDA kernel by entry point (CPU calls are not counted)
+launches = dict.fromkeys((
+    "warp_static_fused", "warp_static",  # K1 with and without taps
+    "warp_tall", "warp_tall_notaps",  # K4
+    "warp_tall_proj", "warp_tall_proj_notaps",  # K5
+), 0)
 
-# Launch counts of the CUDA kernel (CPU calls are not counted): with taps
-# (the autograd forward) and without (the no-grad warp).
-warp_launches = 0
-warp_notaps_launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None
+_PROJ_EPS = 1e-3  # z clamp of the projection, as geometry.camera.project_3d
+_configured: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    global warp_launches, warp_notaps_launches
-    warp_launches = 0
-    warp_notaps_launches = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the warp kernel is built from source at first use")
+    for key in launches:
+        launches[key] = 0
 
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load the warp kernel library."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libtpuslam_warp_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    lib.tpuslam_warp.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.tpuslam_warp.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    global _configured
+    if _configured is None:
+        lib = build.load_library("warp")
+        lib.tpuslam_warp.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.tpuslam_warp.restype = ctypes.c_int
+        _configured = lib
+    return _configured
 
 
-def _check(src: torch.Tensor, coords: torch.Tensor) -> None:
-    if src.device != coords.device:
-        raise ValueError(f"src on {src.device}, coords on {coords.device}")
-    if src.dtype != torch.float32 or coords.dtype != torch.float32:
-        raise TypeError(f"warp takes float32, got {src.dtype} / {coords.dtype}")
-    if src.dim() != 4 or coords.dim() != 4 or coords.shape[-1] != 2:
-        raise ValueError(f"expected src (N,H,W,C), coords (N,H,W,2): "
-                         f"{tuple(src.shape)}, {tuple(coords.shape)}")
-    if coords.shape[:3] != src.shape[:3]:
-        raise ValueError(f"coords {tuple(coords.shape)} do not match src {tuple(src.shape)}")
-    if src.shape[1] < 2 or src.shape[2] < 2:
+def _check_src(src: torch.Tensor, *others: torch.Tensor) -> None:
+    if any(t.device != src.device for t in others):
+        raise ValueError(f"inputs on {[str(t.device) for t in (src,) + others]}")
+    if any(t.dtype != torch.float32 for t in (src,) + others):
+        raise TypeError(f"warp takes float32, got {[t.dtype for t in (src,) + others]}")
+    if src.dim() != 4 or src.shape[1] < 2 or src.shape[2] < 2:
         raise ValueError(f"warp needs H, W >= 2, got {tuple(src.shape)}")
 
 
-def _launch(src, coords, with_taps: bool, bf16_out: bool):
-    if not (src.is_contiguous() and coords.is_contiguous()):
-        raise ValueError("warp kernel takes contiguous src and coords")
+def _check_coords(src: torch.Tensor, coords: torch.Tensor, S: int = 1, tall: bool = False) -> None:
+    if tall and src.shape[0] % 2:
+        raise ValueError(f"tall warp takes 2*B source frames, got {tuple(src.shape)}")
+    if (coords.dim() != 4 or coords.shape[-1] != 2 or coords.shape[1:3] != src.shape[1:3]
+            or coords.shape[0] != S * src.shape[0]):
+        raise ValueError(f"coords {tuple(coords.shape)} do not match src "
+                         f"{tuple(src.shape)} with S = {S}")
+    _check_src(src, coords)
+
+
+def _check_proj(src2: torch.Tensor, depth: torch.Tensor, ab: torch.Tensor, S: int) -> None:
+    B = src2.shape[0] // 2
+    if src2.shape[0] != 2 * B or ab.shape != (2 * B, 12):
+        raise ValueError(f"expected src2 (2B, H, W, C) and ab (2B, 12): "
+                         f"{tuple(src2.shape)}, {tuple(ab.shape)}")
+    if depth.shape != (S * B,) + tuple(src2.shape[1:3]) + (1,):
+        raise ValueError(f"depth {tuple(depth.shape)} is not (S*B, H, W, 1) for "
+                         f"src2 {tuple(src2.shape)}, S = {S}")
+    _check_src(src2, depth, ab)
+
+
+def _launch(src, coords, depth, ab, N: int, S: int, B: int, with_taps: bool, bf16_out: bool):
+    tensors = [t for t in (src, coords, depth, ab) if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("warp kernel takes contiguous inputs")
     lib = load_library()
-    N, H, W, C = src.shape
+    _, H, W, C = src.shape
     dtype = torch.bfloat16 if bf16_out else torch.float32
-    outs = [torch.empty(src.shape, dtype=dtype, device=src.device)
+    outs = [torch.empty((N, H, W, C), dtype=dtype, device=src.device)
             for _ in range(3 if with_taps else 1)]
-    out = outs[0]
+    ptr = [t.data_ptr() if t is not None else None for t in (coords, depth, ab)]
     dx = outs[1].data_ptr() if with_taps else None
     dy = outs[2].data_ptr() if with_taps else None
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tpuslam_warp(src.data_ptr(), coords.data_ptr(), out.data_ptr(), dx, dy,
-                               N, H, W, C, int(with_taps), int(bf16_out), stream)
+        err = lib.tpuslam_warp(src.data_ptr(), *ptr, outs[0].data_ptr(), dx, dy,
+                               N, H, W, C, S, B, int(with_taps), int(bf16_out), stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
     return outs
+
+
+def _stored(outs, bf16_out: bool):
+    dtype = torch.bfloat16 if bf16_out else torch.float32
+    return tuple(t.to(dtype) for t in outs)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
 
 
 def warp_static_fused_plain(
@@ -139,64 +143,230 @@ def warp_static_fused_plain(
     return out, dx, dy
 
 
+def tall_sources(src2: torch.Tensor, S: int) -> torch.Tensor:
+    """The (2*S*B, H, W, C) source stack that K4's index map reads: output n
+    takes src2[(n // (S*B)) * B + n % B] (`_tall_specs`, pallas_warp.py)."""
+    B = src2.shape[0] // 2
+    n = torch.arange(2 * S * B, device=src2.device)
+    return src2[(n // (S * B)) * B + n % B]
+
+
+def warp_tall_plain(src2: torch.Tensor, coords: torch.Tensor, S: int):
+    """Plain version of K4 with taps: the index map, then
+    `warp_static_fused_plain`.  Without taps: `bilinear_sampler` of
+    `tall_sources`."""
+    return warp_static_fused_plain(tall_sources(src2, S), coords)
+
+
+def proj_coords_plain(depth: torch.Tensor, ab: torch.Tensor, S: int) -> torch.Tensor:
+    """The coordinates K5 computes in its prologue, (2*S*B, H, W, 2): the
+    counterpart of `proj_coords_xla` (pallas_warp.py) with `_proj_xy`'s
+    formula and order.  Differentiable in depth and ab."""
+    SB, H, W = depth.shape[:3]
+    B = ab.shape[0] // 2
+    d = depth[..., 0].repeat(2, 1, 1)  # (2SB, H, W)
+    n = torch.arange(2 * SB, device=depth.device)
+    abn = ab[(n // (S * B)) * B + n % B]  # (2SB, 12)
+    a = [abn[:, k, None, None] for k in range(12)]
+    u = torch.arange(W, dtype=torch.float32, device=depth.device)[None, None, :]
+    v = torch.arange(H, dtype=torch.float32, device=depth.device)[None, :, None]
+    rx = a[0] * u + a[1] * v + a[2]
+    ry = a[3] * u + a[4] * v + a[5]
+    rz = a[6] * u + a[7] * v + a[8]
+    cx = d * rx + a[9]
+    cy = d * ry + a[10]
+    cz = d * rz + a[11]
+    z = torch.clamp_min(cz, _PROJ_EPS)
+    return torch.stack([cx / z, cy / z], dim=-1)
+
+
+def warp_tall_proj_plain(src2, depth, ab, S: int):
+    """Plain version of K5 with taps: `warp_tall_plain` at
+    `proj_coords_plain`."""
+    return warp_tall_plain(src2, proj_coords_plain(depth, ab, S), S)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: plain version on the CPU, the kernel on CUDA
+# ---------------------------------------------------------------------------
+
+
 def warp_static_fused(src, coords, bf16_out: bool = False):
     """K1 with taps: (out, dx, dy), stored as bf16 when `bf16_out`."""
-    global warp_launches
-    _check(src, coords)
+    _check_coords(src, coords)
     if src.device.type == "cpu":
-        dtype = torch.bfloat16 if bf16_out else torch.float32
         with torch.no_grad():
-            return tuple(t.to(dtype) for t in warp_static_fused_plain(src, coords))
-    outs = _launch(src, coords, True, bf16_out)
-    warp_launches += 1
+            return _stored(warp_static_fused_plain(src, coords), bf16_out)
+    outs = _launch(src, coords, None, None, src.shape[0], 1, src.shape[0], True, bf16_out)
+    launches["warp_static_fused"] += 1
     return tuple(outs)
 
 
 def warp_static(src, coords, bf16_out: bool = False):
     """K1 without taps: the warped image, stored as bf16 when `bf16_out`."""
-    global warp_notaps_launches
-    _check(src, coords)
+    _check_coords(src, coords)
     if src.device.type == "cpu":
-        dtype = torch.bfloat16 if bf16_out else torch.float32
         with torch.no_grad():
-            return bilinear_sampler(src, coords).to(dtype)
-    out = _launch(src, coords, False, bf16_out)[0]
-    warp_notaps_launches += 1
+            return _stored((bilinear_sampler(src, coords),), bf16_out)[0]
+    out = _launch(src, coords, None, None, src.shape[0], 1, src.shape[0], False, bf16_out)[0]
+    launches["warp_static"] += 1
     return out
 
 
-def _live(v: torch.Tensor, hi: float) -> torch.Tensor:
+def warp_tall_taps(src2, coords, S: int, bf16_out: bool = False):
+    """K4 with taps: (out, dx, dy) of the (2*S*B, H, W, C) stack."""
+    _check_coords(src2, coords, S, tall=True)
+    if src2.device.type == "cpu":
+        with torch.no_grad():
+            return _stored(warp_tall_plain(src2, coords, S), bf16_out)
+    B = src2.shape[0] // 2
+    outs = _launch(src2, coords, None, None, 2 * S * B, S, B, True, bf16_out)
+    launches["warp_tall"] += 1
+    return tuple(outs)
+
+
+def warp_tall_notaps(src2, coords, S: int, bf16_out: bool = False):
+    """K4 without taps: the warped (2*S*B, H, W, C) stack."""
+    _check_coords(src2, coords, S, tall=True)
+    if src2.device.type == "cpu":
+        with torch.no_grad():
+            return _stored((bilinear_sampler(tall_sources(src2, S), coords),), bf16_out)[0]
+    B = src2.shape[0] // 2
+    out = _launch(src2, coords, None, None, 2 * S * B, S, B, False, bf16_out)[0]
+    launches["warp_tall_notaps"] += 1
+    return out
+
+
+def warp_tall_proj_taps(src2, depth, ab, S: int, bf16_out: bool = False):
+    """K5 with taps: (out, dx, dy), the coordinates computed in the kernel."""
+    _check_proj(src2, depth, ab, S)
+    if src2.device.type == "cpu":
+        with torch.no_grad():
+            return _stored(warp_tall_proj_plain(src2, depth, ab, S), bf16_out)
+    B = src2.shape[0] // 2
+    outs = _launch(src2, None, depth, ab, 2 * S * B, S, B, True, bf16_out)
+    launches["warp_tall_proj"] += 1
+    return tuple(outs)
+
+
+def warp_tall_proj_notaps(src2, depth, ab, S: int, bf16_out: bool = False):
+    """K5 without taps: the warped stack, the coordinates computed in the
+    kernel."""
+    _check_proj(src2, depth, ab, S)
+    if src2.device.type == "cpu":
+        with torch.no_grad():
+            coords = proj_coords_plain(depth, ab, S)
+            return _stored((bilinear_sampler(tall_sources(src2, S), coords),), bf16_out)[0]
+    B = src2.shape[0] // 2
+    out = _launch(src2, None, depth, ab, 2 * S * B, S, B, False, bf16_out)[0]
+    launches["warp_tall_proj_notaps"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+
+def live(v: torch.Tensor, hi: float) -> torch.Tensor:
     """Clip subgradient: 1 strictly inside (0, hi), 0.5 at an exact edge."""
     inside = ((v > 0.0) & (v < hi)).float()
     tie = ((v == 0.0) | (v == hi)).float()
     return inside + 0.5 * tie
 
 
-class WarpStaticFused(torch.autograd.Function):
-    """Warp with the fused gradient: the forward stores the tap
-    differentials, the backward contracts them with the incoming gradient."""
+def contract_taps(g: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor):
+    """sum_c g * d for both tap differentials, in f32 -> two (N, H, W)."""
+    gf = g.float()
+    return (gf * dx.float()).sum(-1), (gf * dy.float()).sum(-1)
+
+
+def live_coords_grad(coords: torch.Tensor, dcx: torch.Tensor, dcy: torch.Tensor):
+    """Coordinate cotangent (N, H, W, 2) from the raw contractions, gated by
+    `live` at the image bounds."""
+    H, W = coords.shape[1:3]
+    return torch.stack([dcx * live(coords[..., 0], W - 1),
+                        dcy * live(coords[..., 1], H - 1)], dim=-1)
+
+
+def proj_vjp_chain(depth, ab, dcx, dcy, S: int):
+    """Chain the raw coordinate cotangents (2*S*B, H, W) to (d depth, d ab)
+    through autograd of `proj_coords_plain`, with `live` applied to the
+    recomputed coordinates (`proj_vjp_chain`, pallas_warp.py)."""
+    with torch.enable_grad():
+        d = depth.detach().requires_grad_()
+        a = ab.detach().requires_grad_()
+        coords = proj_coords_plain(d, a, S)
+        dcoords = live_coords_grad(coords.detach(), dcx, dcy)
+        return torch.autograd.grad(coords, (d, a), dcoords)
+
+
+class WarpFused(torch.autograd.Function):
+    """K1 or K4 with the fused gradient (`_fused_bwd`, `_tall_bwd`): the
+    forward (`taps`: `warp_static_fused` or `warp_tall_taps`, called with
+    `args` after the coordinates) stores the tap differentials, the backward
+    contracts them with the incoming gradient."""
 
     @staticmethod
-    def forward(ctx, src, coords, bf16_out: bool):
-        out, dx, dy = warp_static_fused(src, coords.detach(), bf16_out)
+    def forward(ctx, taps, src, coords, *args):
+        out, dx, dy = taps(src, coords.detach(), *args)
         ctx.save_for_backward(coords, dx, dy)
-        ctx.hw = src.shape[1:3]
+        ctx.n_args = len(args)
         return out
 
     @staticmethod
     def backward(ctx, g):
         coords, dx, dy = ctx.saved_tensors
-        H, W = ctx.hw
-        gf = g.float()
-        ddx = (gf * dx.float()).sum(-1) * _live(coords[..., 0], W - 1)
-        ddy = (gf * dy.float()).sum(-1) * _live(coords[..., 1], H - 1)
-        return None, torch.stack([ddx, ddy], dim=-1), None
+        dcoords = live_coords_grad(coords, *contract_taps(g, dx, dy))
+        return (None, None, dcoords) + (None,) * ctx.n_args
+
+
+class WarpTallProj(torch.autograd.Function):
+    """K5 with the fused gradient (`_tall_proj_fwd` / `_tall_proj_bwd`):
+    the tap contraction, then the projection chain to depth and ab."""
+
+    @staticmethod
+    def forward(ctx, src2, depth, ab, S: int, bf16_out: bool):
+        out, dx, dy = warp_tall_proj_taps(src2, depth.detach(), ab.detach(), S, bf16_out)
+        ctx.save_for_backward(depth, ab, dx, dy)
+        ctx.S = S
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        depth, ab, dx, dy = ctx.saved_tensors
+        ddepth, dab = proj_vjp_chain(depth, ab, *contract_taps(g, dx, dy), ctx.S)
+        return None, ddepth, dab, None, None
+
+
+def grad_wanted(*tensors: torch.Tensor) -> bool:
+    """Whether autograd is recording a gradient to any of `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def warp(src: torch.Tensor, coords: torch.Tensor, bf16_out: bool = False) -> torch.Tensor:
     """Bilinear border-clamped warp of src (N, H, W, C) at pixel coords
     (N, H, W, 2): K1 with taps when a gradient to `coords` is being
     recorded, K1 without taps otherwise."""
-    if torch.is_grad_enabled() and coords.requires_grad:
-        return WarpStaticFused.apply(src, coords, bf16_out)
+    if grad_wanted(coords):
+        return WarpFused.apply(warp_static_fused, src, coords, bf16_out)
     return warp_static(src, coords, bf16_out)
+
+
+def warp_tall(src2: torch.Tensor, coords: torch.Tensor, S: int,
+              bf16_out: bool = False) -> torch.Tensor:
+    """Warp of the 2*B distinct sources src2 at the (2*S*B, H, W, 2) stack of
+    coordinates: K4 with taps under autograd, without taps otherwise."""
+    if grad_wanted(coords):
+        return WarpFused.apply(warp_tall_taps, src2, coords, S, bf16_out)
+    return warp_tall_notaps(src2, coords, S, bf16_out)
+
+
+def warp_tall_proj(src2: torch.Tensor, depth: torch.Tensor, ab: torch.Tensor, S: int,
+                   bf16_out: bool = False) -> torch.Tensor:
+    """Warp of src2 at the coordinates that depth (S*B, H, W, 1) and the
+    affine maps ab (2*B, 12) give: K5 with taps under autograd (gradients to
+    depth and ab), without taps otherwise."""
+    if grad_wanted(depth, ab):
+        return WarpTallProj.apply(src2, depth, ab, S, bf16_out)
+    return warp_tall_proj_notaps(src2, depth, ab, S, bf16_out)

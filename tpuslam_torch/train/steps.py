@@ -28,13 +28,15 @@ from tpuslam_torch.geometry.camera import (
     bilinear_sampler,
     pixel_grid,
     project_3d,
+    projection_affine,
     resize_bilinear,
 )
 from tpuslam_torch.geometry.depth import depth_to_disp, disp_to_depth
 from tpuslam_torch.geometry.se3 import transformation_from_parameters
 from tpuslam_torch.losses.photometric import identity_reprojection, total_loss
 from tpuslam_torch.models.depth_pose import DepthPoseNet, l2_normalize
-from tpuslam_torch.ops.warp import warp
+from tpuslam_torch.ops.reproj import reproj_err, warp_reproj_err, warp_reproj_err_proj
+from tpuslam_torch.ops.warp import warp, warp_tall, warp_tall_proj
 from tpuslam_torch.train.batch import FrameBatch
 from tpuslam_torch.train.state import TrainState
 
@@ -43,10 +45,6 @@ from tpuslam_torch.train.state import TrainState
 _UNPORTED_FLAGS = {
     "pallas_packed": "K2 (packed taps)",
     "pallas_seg_skip": "K2 (seg-skip sweep)",
-    "pallas_tall": "K4 (deduplicated-source warp)",
-    "pallas_proj": "K5 (in-kernel projection warp)",
-    "pallas_fused_loss": "K6 (SSIM + L1 error map)",
-    "pallas_fused_bwd": "K7/K8 (fused error-and-warp backward)",
 }
 
 
@@ -61,8 +59,17 @@ class LossConfig(NamedTuple):
     # True: the warp runs kernel K1 (CUDA, `ops/warp.py`); False: the plain
     # differentiable sampler `bilinear_sampler`
     use_pallas_warp: bool = True
-    # store K1's outputs (warped image and tap differentials) as bf16
+    # store the warp's outputs (warped image and tap differentials) as bf16
     pallas_bf16_out: bool = True
+    # the fused warp -> loss stack (JAX routing, `warp_and_loss`):
+    # K4 deduplicated-source warp (`pallas_tall`), with K5's in-kernel
+    # projection (`pallas_proj`, needs `pallas_tall`); K6 error maps with
+    # their K6' backward (`pallas_fused_loss`); with all of tall, fused_loss
+    # and fused_bwd, one K7/K8 backward in place of K6' and the warp's own
+    pallas_tall: bool = False
+    pallas_proj: bool = False
+    pallas_fused_loss: bool = False
+    pallas_fused_bwd: bool = False
     bf16_networks: bool = True  # `dtype: bfloat16`: networks under autocast
     scale_prior_weight: float = 0.0
     scale_prior_depth: float = 15.0
@@ -71,12 +78,17 @@ class LossConfig(NamedTuple):
 def loss_config(pc) -> LossConfig:
     """The LossConfig of a `DepthPoseConfig`, with every `pallas_*` flag mapped.
 
-    `pallas_warp` selects K1 and `pallas_bf16_out` its bf16 storage.
-    `pallas_group_skip` and `pallas_extra_tiles` shape only the TPU kernel's
-    source window, so they have no effect on the port's exact kernel; nor has
-    `pallas_fused_grad`, whose two settings give the same gradient (K1 stores
-    the tap differentials either way).  The flags of kernels not ported yet
-    raise NotImplementedError."""
+    `pallas_warp` selects the warp kernels and `pallas_bf16_out` their bf16
+    storage; `pallas_tall`, `pallas_proj`, `pallas_fused_loss` and
+    `pallas_fused_bwd` select the fused stack (K4-K8) as the JAX package
+    routes them.  The JAX package runs those kernels only at H % 8 == 0,
+    W % 128 == 0 and W >= 384 and silently computes the same function in XLA
+    below that; the port's kernels have no shape limit, so they run at every
+    shape.  `pallas_group_skip` and `pallas_extra_tiles` shape only the TPU
+    kernels' source window, so they have no effect on the port's exact
+    kernels; nor has `pallas_fused_grad`, whose two settings give the same
+    gradient (K1 stores the tap differentials either way).  The flags of
+    kernels not ported yet raise NotImplementedError."""
     for flag, entry in _UNPORTED_FLAGS.items():
         if getattr(pc, flag):
             raise NotImplementedError(
@@ -92,6 +104,10 @@ def loss_config(pc) -> LossConfig:
         velocity_loss_scaling=pc.velocity_loss_scaling,
         use_pallas_warp=pc.pallas_warp,
         pallas_bf16_out=pc.pallas_bf16_out,
+        pallas_tall=pc.pallas_tall,
+        pallas_proj=pc.pallas_proj,
+        pallas_fused_loss=pc.pallas_fused_loss,
+        pallas_fused_bwd=pc.pallas_fused_bwd,
         bf16_networks=pc.dtype == "bfloat16",
     )
 
@@ -143,9 +159,16 @@ def warp_and_loss(
     `disps` maps ('disp', s) to the sigmoid disparity pyramid (NHWC);
     `aa`/`tr` are the doubled-batch (2B, 3) pose outputs ordered
     [pair (prev, cur); pair (cur, next)].  All (direction, scale) warps fold
-    into one projection and one warp of 2*S*B images: the sources are tiled
-    S-fold and the coordinates are (2*S*B, H, W, 2).  K1 has no shape limits,
-    so every resolution takes it when `use_pallas_warp` is set.
+    into one warp of the 2*S*B-image stack [direction, scale, batch].  The
+    routing is the JAX package's: with `pallas_tall` the warp reads the 2*B
+    distinct sources (K4), and with `pallas_proj` too it projects in the
+    kernel from depth and the affine maps of `projection_affine` (K5);
+    otherwise the sources are tiled S-fold and K1 warps the (2*S*B, H, W, 2)
+    coordinates.  `pallas_fused_loss` computes all error maps in one kernel
+    (K6) and hands them to `total_loss`; with `pallas_tall` and
+    `pallas_fused_bwd` as well, the warp and the maps form one composite
+    whose backward is one kernel (K7, or K8 with proj).  The kernels have no
+    shape limits, so every resolution takes them.
     """
     H, W = batch.height, batch.width
     B = batch.batch_size
@@ -164,19 +187,58 @@ def warp_and_loss(
         outputs[("disp", s)] = disp
 
     depth_stack = torch.cat(depths)  # (S*B, H, W, 1)
-    T_stack = torch.cat([_tile(T_prev, S), _tile(T_next, S)])
-    pix = pixel_grid(H, W, device=depth_stack.device)
-    points = backproject_depth(depth_stack, _tile(batch.inv_K, S), pix)
-    coords = project_3d(_tile(points, 2), _tile(batch.K, 2 * S), T_stack, H, W)
-    src = torch.cat([_tile(batch.frame(-1), S), _tile(batch.frame(1), S)])
-    if cfg.use_pallas_warp:
-        warped = warp(src, coords.contiguous(), cfg.pallas_bf16_out)
+    use_tall = cfg.use_pallas_warp and cfg.pallas_tall
+    use_proj = use_tall and cfg.pallas_proj
+    target = batch.frame(0).contiguous()
+    if use_proj:
+        # the kernel projects: only the per-(direction, batch) affine maps
+        # leave torch, never the points or the coordinate stack
+        ab = projection_affine(_tile(batch.K, 2), _tile(batch.inv_K, 2),
+                               torch.cat([T_prev, T_next]))
     else:
-        warped = bilinear_sampler(src, coords)
+        T_stack = torch.cat([_tile(T_prev, S), _tile(T_next, S)])
+        pix = pixel_grid(H, W, device=depth_stack.device)
+        points = backproject_depth(depth_stack, _tile(batch.inv_K, S), pix)
+        coords = project_3d(_tile(points, 2), _tile(batch.K, 2 * S), T_stack, H, W)
+        coords = coords.contiguous()  # (2*S*B, H, W, 2)
+    err_all = None
+    if use_tall:
+        src2 = torch.cat([batch.frame(-1), batch.frame(1)])  # deduplicated sources
+        if cfg.pallas_fused_loss and cfg.pallas_fused_bwd:
+            # one backward kernel; `warped` comes back detached, which is
+            # exact because the loss reads the error maps
+            if use_proj:
+                err_all, warped = warp_reproj_err_proj(
+                    src2, depth_stack, ab, target, S, cfg.pallas_bf16_out)
+            else:
+                err_all, warped = warp_reproj_err(src2, coords, target, S,
+                                                  cfg.pallas_bf16_out)
+        elif use_proj:
+            warped = warp_tall_proj(src2, depth_stack, ab, S, cfg.pallas_bf16_out)
+        else:
+            warped = warp_tall(src2, coords, S, cfg.pallas_bf16_out)
+    else:
+        src = torch.cat([_tile(batch.frame(-1), S), _tile(batch.frame(1), S)])
+        if cfg.use_pallas_warp:
+            warped = warp(src, coords, cfg.pallas_bf16_out)
+        else:
+            warped = bilinear_sampler(src, coords)
     for fi, f in enumerate((-1, 1)):
         for si, s in enumerate(cfg.scales):
             start = (fi * S + si) * B
             outputs[("rgb", f, s)] = warped[start:start + B]
+
+    # error maps of the whole warp stack in one kernel, read by total_loss
+    # in place of its per-(frame, scale) reprojection_loss calls
+    reproj_maps = None
+    if cfg.pallas_fused_loss:
+        if err_all is None:
+            err_all = reproj_err(warped, target)
+        reproj_maps = {}
+        for fi, f in enumerate((-1, 1)):
+            for si, s in enumerate(cfg.scales):
+                start = (fi * S + si) * B
+                reproj_maps[(f, s)] = err_all[start:start + B]
 
     outputs[("cam_T_cam", 0, -1)] = T_prev
     outputs[("cam_T_cam", 0, 1)] = T_next
@@ -198,6 +260,7 @@ def warp_and_loss(
         sample_weights=batch.weights,
         rng=rng,
         identity_base=identity_base,
+        reproj_maps=reproj_maps,
         scale_prior_weight=cfg.scale_prior_weight,
         scale_prior_disp=(
             depth_to_disp(cfg.scale_prior_depth, cfg.min_depth, cfg.max_depth)
@@ -313,7 +376,8 @@ def adapt_step(
 @full_fp32()
 def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch):
     """No-grad forward: losses + outputs + normalised embedding (the
-    `adaptation: false` SLAM path).  The warp runs K1 without taps."""
+    `adaptation: false` SLAM path).  The warp runs without taps (K1, K4 or
+    K5, as the flags route it) and no backward kernel runs."""
     depth_feats, pose_feat = _frozen_features(model, batch, cfg)
     losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feat)
     outputs[("feat4",)] = depth_feats[-1].mean((2, 3))
