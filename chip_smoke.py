@@ -16,23 +16,39 @@ Phases, each printing lines tagged with its name and raising on failure
    split of a frame;
 5. eval: two frames with `adaptation: false` (batch 1): K1 without taps on
    N = 2*S = 8 images;
-6. fused main: the same adaptation with the fused stack (`pallas_tall`,
-   `pallas_proj`, `pallas_fused_loss`, `pallas_fused_bwd`): per adapted
-   frame 5 launches each of K5 with taps, K6 and K7/K8, and no other
-   kernel of the port;
-7. fused profile: three more frames of it under torch.profiler, beside the
-   numbers of phase 4;
-8. fused eval: two frames of the fused stack with `adaptation: false`: K5
-   without taps and K6 once per frame each;
-9. fused loss: four adapted frames with `pallas_tall` + `pallas_fused_loss`:
-   5 launches per frame each of K4 with taps, K6 and K6';
-10. kernels: every kernel (K1 with and without taps, K4, K5 with and
+6. two-kernel main: twelve adapted frames with `pallas_fused_grad: false`:
+   per frame 5 launches each of K2's forward and backward kernels with
+   exact taps, and no K1 launch; two-kernel profile: three more frames
+   under torch.profiler, beside the numbers of phase 4;
+7. two-kernel eval: two frames of it with `adaptation: false`: one K2
+   forward (f32) per frame;
+8. packed main and seg-skip main: four and two adapted frames with
+   `pallas_packed` and `pallas_seg_skip`: the same two kernels with
+   bf16-truncated taps, 5 launches each per frame;
+9. predictor: `DepthPosePrediction` (float32 networks, the two-kernel
+   warp): `predict_from_images(return_loss=True)` on the card against the
+   same call on the CPU, then one adapt of K = 5, with its launches;
+10. fused main: the same adaptation with the fused stack (`pallas_tall`,
+    `pallas_proj`, `pallas_fused_loss`, `pallas_fused_bwd`): per adapted
+    frame 5 launches each of K5 with taps, K6 and K7/K8, and no other
+    kernel of the port;
+11. fused profile: three more frames of it under torch.profiler, beside
+    the numbers of phase 4;
+12. fused eval: two frames of the fused stack with `adaptation: false`: K5
+    without taps and K6 once per frame each;
+13. fused loss: four adapted frames with `pallas_tall` + `pallas_fused_loss`:
+    5 launches per frame each of K4 with taps, K6 and K6';
+14. kernels: every kernel (K1 with and without taps, K2's forward and
+    backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it, then timed on
     the latter beside the plain version, the bound and, for the warps
-    without taps, torch's grid_sample;
-11. reference: one adaptation step on the card and on the CPU at a small
-    size, with the K1 path and with the fused stack, which must agree.
+    without taps and the backward gathers, torch's grid_sample forward and
+    backward (K3 and K3' are K2 with exact taps, `warp_dynamic`: no path
+    calls them, and their rows carry K2's numbers);
+15. reference: one adaptation step on the card and on the CPU at a small
+    size, with the K1 path, the fused stack, the two-kernel path and the
+    packed variant (and the K1 path again at their size), which must agree.
 
 During every path each plain version refuses CUDA tensors, and the
 kernels' launch counts are set to 0 just before the path and read just
@@ -132,9 +148,10 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
     flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    warm = 3  # the trace may miss the first launches after it starts
-    # a trace now and then holds none of the launches (seen once on the
-    # H100, for grid_sample): take a fresh one, at most three
+    # the trace may miss the first launches after it starts (up to 4 of
+    # them seen on the H100), and now and then it holds none of them (seen
+    # once, for grid_sample): take a fresh one, at most three
+    warm = 10
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(warm + iters):
@@ -385,6 +402,38 @@ def check_err(torch, rp, preds, target, gerr, dx, dy, tag: str) -> dict:
     return err
 
 
+def _warp_grad64(torch, wp, src, coords, g, trunc: bool):
+    """K2's backward evaluated in float64 on the (truncated) f32 source."""
+    s = (wp.trunc_bf16(src) if trunc else src).double()
+    _, dx, dy = wp.warp_static_fused_plain(s, coords.double())
+    gd = g.double()
+    return wp.live_coords_grad(coords.double(), (gd * dx).sum(-1), (gd * dy).sum(-1))
+
+
+def check_k2(torch, wp, src, coords, g, tag: str) -> dict:
+    """K2's forward and backward kernels (K3 and K3' with exact taps), with
+    exact and truncated taps, against the plain versions: f32 values within
+    1e-6 absolute; dcoords within 1e-5 relative of the plain version, or no
+    further from its float64 value than twice the plain float32 version
+    is."""
+    err = {}
+    for trunc, key in ((False, "exact"), (True, "trunc")):
+        out = wp.warp_static(src, coords, False, trunc)
+        plain = wp.warp_two_kernel_plain(src, coords, trunc)
+        d, dp = wp.warp_static_bwd(src, coords, g, trunc), wp.warp_grad_plain(src, coords, g, trunc)
+        d64 = _warp_grad64(torch, wp, src, coords, g, trunc)
+        err[f"fwd_{key}"], err[f"bwd_{key}"] = max_abs(out, plain), max_abs(d, dp)
+        err[f"bwd_{key}_rel"] = rel_err(d, dp)
+        err[f"bwd_{key}_rel64"], err[f"bwd_{key}_plain_rel64"] = rel_err(d, d64), rel_err(dp, d64)
+    close = all(err[f"bwd_{k}_rel"] <= 1e-5
+                or err[f"bwd_{k}_rel64"] <= 2 * err[f"bwd_{k}_plain_rel64"]
+                for k in ("exact", "trunc"))
+    _require(err["fwd_exact"] <= 1e-6 and err["fwd_trunc"] <= 1e-6 and close,
+             f"K2/K3 vs plain on {tag}", err)
+    _log_err("K2/K3", tag, src.shape, err)
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Paths
 # ---------------------------------------------------------------------------
@@ -396,10 +445,12 @@ class PathGuard:
     reference: the path does not write to them afterwards)."""
 
     PLAIN = {"wp": ("warp_static_fused_plain", "bilinear_sampler", "warp_tall_plain",
-                    "warp_tall_proj_plain"),
+                    "warp_tall_proj_plain", "warp_two_kernel_plain", "warp_grad_plain",
+                    "trunc_bf16"),
              "rp": ("reproj_err_plain", "reproj_err_bwd_plain", "err_bwd_coords_plain")}
     WRAPPERS = {"wp": ("warp_static_fused", "warp_static", "warp_tall_taps",
-                       "warp_tall_notaps", "warp_tall_proj_taps", "warp_tall_proj_notaps"),
+                       "warp_tall_notaps", "warp_tall_proj_taps", "warp_tall_proj_notaps",
+                       "warp_static_bwd"),
                 "rp": ("reproj_err_fwd", "reproj_err_bwd", "err_bwd_coords")}
 
     def __init__(self, wp, rp, captured: dict):
@@ -467,14 +518,17 @@ def smoke_config(log_dir: Path, adaptation: bool, height=H, width=W, **pc):
 
 def run_adapt_path(torch, wp, rp, phase, log_dir, captured, card, steps, want, **pc):
     """`steps` frames of `Slam.step` with adaptation; checks losses, the pose
-    graph and the launches (`want`: kernel -> launches per adapted frame)."""
+    graph and the launches (`want`: kernel -> launches per adapted frame).
+    Returns the launches, the Slam and the mean time of frames 3 on (frames
+    1-2 hold cuDNN autotuning and warm-up), None for runs of 2 frames."""
     import numpy as np
 
     from tpuslam_torch.slam import Slam
 
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier paths' inputs kept for phase kernels
     slam = Slam(smoke_config(log_dir, adaptation=True, **pc), device="cuda")
     losses = []
-    torch.cuda.reset_peak_memory_stats()
     reset_launches(wp, rp)
     with PathGuard(wp, rp, captured):
         for _ in range(steps):
@@ -487,13 +541,14 @@ def run_adapt_path(torch, wp, rp, phase, log_dir, captured, card, steps, want, *
     if slam.pose_graph.vertex_ids != list(range(adapted + 1)):
         raise AssertionError(f"{phase}: pose graph vertices {slam.pose_graph.vertex_ids}")
     expect_launches(phase, launches, {k: v * adapted for k, v in want.items()})
-    steady = slam.step_times[2:]
-    ms = 1e3 * float(np.mean(steady))
+    ms = 1e3 * float(np.mean(slam.step_times[2:])) if adapted > 2 else None
+    steady = (f"steady {ms:.2f} ms/frame = {1e3 / ms:.2f} frames/s (frames 3-{adapted})"
+              if ms is not None else "no steady time (warm-up frames only)")
     log(phase, f"{adapted} frames adapted, loss {losses[-1]['loss']:.5f}, launches "
         f"{ {k: v for k, v in launches.items() if v} }, replay buffer "
-        f"{len(slam.replay_buffer)}, steady {ms:.2f} ms/frame = {1e3 / ms:.2f} frames/s "
-        f"(frames 3-{steps}), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        f"{len(slam.replay_buffer)}, {steady}, peak memory "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before the path [{card}]")
     return launches, slam, ms
 
 
@@ -511,6 +566,55 @@ def run_eval_path(torch, wp, rp, phase, log_dir, captured, want, **pc):
     expect_launches(phase, launches, want)
     log(phase, f"2 frames, loss {losses[-1]['loss']:.5f}, launches "
         f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase_predictor(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict:
+    """`DepthPosePrediction` at 192 x 640, float32 networks, the two-kernel
+    warp: `predict_from_images(return_loss=True)` on the card against the
+    same call on the CPU from the same weights (depths, pose and loss within
+    1e-3 relative: cuDNN sums in another order), then one adapt of K = 5 on
+    a batch of 3; returns the launches."""
+    import warnings
+
+    import numpy as np
+
+    from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig
+    from tpuslam_torch.data.synthetic import SyntheticDataset
+    from tpuslam_torch.predictor import DepthPosePrediction
+    from tpuslam_torch.train.batch import concat_batches, make_frame_batch
+
+    ds = SyntheticDataset(num_frames=6, height=H, width=W)
+    dc = DatasetConfig(dataset="Synthetic", height=H, width=W)
+    pc = DepthPoseConfig(batch_size=3, log_path=log_dir, dtype="float32", pallas_fused_grad=False)
+    s = ds[1]
+    calib = dict(return_loss=True, camera_matrix=s.K, inv_camera_matrix=np.linalg.inv(s.K),
+                 relative_distance=s.rel_dist[0])
+    warnings.filterwarnings("ignore", "The model has not been trained yet")
+    want = DepthPosePrediction(dc, pc, device="cpu").predict_from_images(s.rgb[0], s.rgb[1], **calib)
+    pred = DepthPosePrediction(dc, pc, device="cuda")
+    online = make_frame_batch(s.rgb[None], s.K, s.rel_dist[None], device="cuda")
+    replay = [ds[2], ds[3]]
+    training = concat_batches(online, make_frame_batch(
+        np.stack([r.rgb for r in replay]), np.stack([r.K for r in replay]),
+        np.stack([r.rel_dist for r in replay]), device="cuda"))
+    reset_launches(wp, rp)
+    with PathGuard(wp, rp, captured):
+        got = pred.predict_from_images(s.rgb[0], s.rgb[1], **calib)
+        outputs, losses = pred.adapt(online, training, steps=5)
+        packed = outputs[("retire_packed",)].cpu().numpy()
+    launches = read_launches(wp, rp)
+    err = dict(depth_0=rel_err(torch.from_numpy(got[0]), torch.from_numpy(want[0])),
+               depth_1=rel_err(torch.from_numpy(got[1]), torch.from_numpy(want[1])),
+               pose=rel_err(torch.from_numpy(got[2]), torch.from_numpy(want[2])),
+               loss=abs(got[3]["loss"] - want[3]["loss"]) / abs(want[3]["loss"]))
+    _require(max(err.values()) <= 1e-3 and np.all(np.isfinite(packed)),
+             "predictor: card vs CPU", err)
+    expect_launches("predictor", launches, {"warp_static": 6, "warp_static_bwd": 5})
+    log("predictor", f"predict_from_images(return_loss=True) card vs CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+        + f"; probe loss {got[3]['loss']:.5f}; adapt K=5 loss {float(losses['loss']):.5f}; "
+        f"launches { {k: v for k, v in launches.items() if v} } [{card}]")
     return launches
 
 
@@ -561,11 +665,13 @@ def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
     return out
 
 
-def phase_reference(torch, log_dir: Path, tag: str, **pc):
+def phase_reference(torch, log_dir: Path, tag: str, height=64, width=192, **pc):
     """One adapt_step on the card (kernels) and on the CPU (plain versions)
-    from the same weights and batch, at 64 x 192, float32, noise off.  cuDNN
-    sums in another order than the CPU, and Adam's first step normalises
-    each gradient, so the two agree to ~1e-5, not to the last bit."""
+    from the same weights and batch, at 64 x 192 (64 x 384 for the
+    two-kernel routes, inside the gate where the packed taps truncate),
+    float32, noise off.  cuDNN sums in another order than the CPU, and
+    Adam's first step normalises each gradient, so the two agree to ~1e-5,
+    not to the last bit."""
     import numpy as np
 
     from tpuslam_torch.data.synthetic import SyntheticDataset
@@ -574,10 +680,10 @@ def phase_reference(torch, log_dir: Path, tag: str, **pc):
     from tpuslam_torch.train.state import make_adapt_optimizer, make_train_state
     from tpuslam_torch.train.steps import adapt_step, loss_config
 
-    pcfg = smoke_config(log_dir, True, 64, 192, dtype="float32",
+    pcfg = smoke_config(log_dir, True, height, width, dtype="float32",
                         pallas_bf16_out=False, **pc).depth_pose
     cfg = loss_config(pcfg)
-    sample = SyntheticDataset(num_frames=4, height=64, width=192)[1]
+    sample = SyntheticDataset(num_frames=4, height=height, width=width)[1]
     packed = {}
     for dev in ("cuda", "cpu"):
         model = init_depth_pose(0, device=dev)
@@ -589,8 +695,8 @@ def phase_reference(torch, log_dir: Path, tag: str, **pc):
     rel = float(np.linalg.norm(packed["cuda"] - packed["cpu"]) / np.linalg.norm(packed["cpu"]))
     if not (np.all(np.isfinite(packed["cuda"])) and rel <= 1e-3):
         raise AssertionError(f"adapt_step ({tag}) card vs CPU: relative error {rel} > 1e-3")
-    log("reference", f"adapt_step ({tag}) 64x192 K=2 float32, card vs CPU packed readback: "
-        f"relative error {rel:.3g}")
+    log("reference", f"adapt_step ({tag}) {height}x{width} K=2 float32, card vs CPU packed "
+        f"readback: relative error {rel:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -614,7 +720,24 @@ def _grid_sample_ms(torch, src, coords):
     return device_ms(torch, grid_sample, "grid_sampler"), time_ms(grid_sample)
 
 
-def timed(torch, card, name, fn, plain, match, inputs, outputs, flops, err, lib=None):
+def _grid_sample_bwd_ms(torch, src, coords, g):
+    """torch's grid_sample backward, the grid gradient only (the gather
+    K2's backward kernel does), on the same warp: device and back-to-back
+    times.  A yardstick only; the port never calls it."""
+    grid = torch.stack([coords[..., 0] / (W - 1) * 2 - 1,
+                        coords[..., 1] / (H - 1) * 2 - 1], -1)
+    src_nchw = src.permute(0, 3, 1, 2).contiguous()
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+
+    def backward():  # bilinear (0), border padding (1), align_corners
+        return torch.ops.aten.grid_sampler_2d_backward(g_nchw, src_nchw, grid, 0, 1, True,
+                                                        [False, True])
+
+    return device_ms(torch, backward, "grid_sampler_2d_backward"), time_ms(backward)
+
+
+def timed(torch, card, name, fn, plain, match, inputs, outputs, flops, err, lib=None,
+          lib_name="grid_sample"):
     ms = device_ms(torch, fn, match)
     warm_ms = time_ms(fn)
     plain_ms = time_ms(plain)
@@ -623,7 +746,7 @@ def timed(torch, card, name, fn, plain, match, inputs, outputs, flops, err, lib=
     log("kernels", f"{name} at {tuple(outputs[0].shape)}: kernel {ms:.4f} ms (device, L2 flushed), "
         f"{warm_ms:.4f} ms (back to back, events); bound {bms:.4f} ms ({by}); plain "
         f"{plain_ms:.4f} ms"
-        + (f"; grid_sample {lib_ms:.4f} ms (device, L2 flushed), {lib_warm:.4f} ms (back "
+        + (f"; {lib_name} {lib_ms:.4f} ms (device, L2 flushed), {lib_warm:.4f} ms (back "
            f"to back)" if lib_ms is not None else "; no library call computes it")
         + f" [{card}]")
     return dict(ms=ms, warm_ms=warm_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
@@ -744,6 +867,51 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
         (preds, target, g, dx, dy), (dc,), preds.numel() * (ERR_BWD_FLOPS + 4),
         worst(e6, [key]))
 
+    # K2 on the two-kernel paths (K3 and K3' are K2 with exact taps)
+    k2, k2b = cap["two-kernel main"]["warp_static"], cap["two-kernel main"]["warp_static_bwd"]
+    k2t, k2bt = cap["packed main"]["warp_static"], cap["packed main"]["warp_static_bwd"]
+    k2e, k2p = cap["two-kernel eval"]["warp_static"], cap["predictor"]["warp_static_bwd"]
+    shapes = [t[0].shape for t in (k2, k2b, k2t, k2bt, k2e, k2p, cap["seg-skip main"][
+        "warp_static_bwd"])]
+    flags = [k2[2:], k2b[3], k2t[2:], k2bt[3], k2e[2:]]
+    if ([tuple(x) for x in shapes] != [(N_MAIN, H, W, C)] * 4 + [(N_EVAL, H, W, C)]
+            + [(N_MAIN, H, W, C)] * 2
+            or flags != [(False, False), False, (False, True), True, (False, False)]):
+        raise AssertionError(f"two-kernel inputs of the paths: {shapes}, flags {flags}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    src_a, coords_a = warp_inputs(dev, N_MAIN)
+    g_a = torch.randn(src_a.shape, generator=gen, device=dev)
+    e2 = [check_k2(torch, wp, src_a, coords_a, g_a, "adversarial coords"),
+          check_k2(torch, wp, *k2b[:3], "the two-kernel path's inputs"),
+          check_k2(torch, wp, *k2bt[:3], "the packed path's inputs"),
+          check_k2(torch, wp, *cap["seg-skip main"]["warp_static_bwd"][:3],
+                   "the seg-skip path's inputs"),
+          check_k2(torch, wp, *k2p[:3], "the predictor's inputs"),
+          check_k2(torch, wp, *k2e[:2], torch.randn(k2e[0].shape, generator=gen, device=dev),
+                   "the two-kernel eval path's inputs")]
+    fwd_flops, bwd_flops = 10 + 9 * C, 14 + 16 * C
+    for name, (src, coords, _, trunc) in (("warp_static_k2", k2), ("warp_static_k2_trunc", k2t)):
+        out = wp.warp_static(src, coords, False, trunc)
+        res[name] = timed(
+            torch, card, name, lambda: wp.warp_static(src, coords, False, trunc),
+            lambda: wp.warp_two_kernel_plain(src, coords, trunc), "warp_kernel", (src, coords),
+            (out,), n_pix * fwd_flops, worst(e2, ["fwd_trunc" if trunc else "fwd_exact"]),
+            _grid_sample_ms(torch, src, coords))
+    for name, (src, coords, g, trunc) in (("warp_static_bwd", k2b), ("warp_static_bwd_trunc", k2bt)):
+        d = wp.warp_static_bwd(src, coords, g, trunc)
+        res[name] = timed(
+            torch, card, name, lambda: wp.warp_static_bwd(src, coords, g, trunc),
+            lambda: wp.warp_grad_plain(src, coords, g, trunc), "warp_grad_kernel",
+            (src, coords, g), (d,), n_pix * bwd_flops,
+            worst(e2, ["bwd_trunc" if trunc else "bwd_exact"]),
+            _grid_sample_bwd_ms(torch, src, coords, g), "grid_sample backward")
+    src, coords = k2e[:2]
+    ms_eval = device_ms(torch, lambda: wp.warp_static(src, coords), "warp_kernel")
+    bms_eval, _ = bound_ms((src, coords), (src,), src.shape[0] * H * W * fwd_flops)
+    log("kernels", f"K2's forward on the two-kernel eval path's inputs "
+        f"{tuple(src.shape)}: kernel {ms_eval:.4f} ms (device, L2 flushed); bound "
+        f"{bms_eval:.4f} ms [{card}]")
+
     # K4 reads each of its 2*B sources once; K1 reads the S-fold tiled copy
     src2, coords, n_s, bf16 = k4
     tiled = wp.tall_sources(src2, n_s).contiguous()
@@ -752,6 +920,18 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
         f"{res['warp_tall']['ms']:.4f} ms, K1 on the tiled sources {ms_tiled:.4f} ms "
         f"(device, L2 flushed) [{card}]")
     return res
+
+
+def log_beside(phase: str, card: str, label: str, a, b) -> None:
+    """Two paths' frame numbers from one call, side by side: each a
+    (steady ms/frame, phase_profile result) pair."""
+    (a_ms, a_prof), (b_ms, b_prof) = a, b
+    if "busy_ms" in a_prof and "busy_ms" in b_prof:
+        log(phase, f"{label}, same call: steady {a_ms:.2f} / {b_ms:.2f} ms/frame; profiled "
+            f"wall {a_prof['wall_ms']:.2f} / {b_prof['wall_ms']:.2f} ms/frame; device busy "
+            f"{a_prof['busy_ms']:.2f} / {b_prof['busy_ms']:.2f} ms/frame; idle share "
+            f"{a_prof['idle']:.3f} / {b_prof['idle']:.3f}; device activities/frame "
+            f"{a_prof['activities']:.0f} / {b_prof['activities']:.0f} [{card}]")
 
 
 def main() -> int:
@@ -778,6 +958,8 @@ def main() -> int:
 
     cap = {}  # path -> kernel wrapper -> its last inputs
     k1_taps = {"warp_static_fused": 5}
+    two_kernel = {"warp_static": 5, "warp_static_bwd": 5}
+    truncated = {"warp_static_trunc": 5, "warp_static_bwd_trunc": 5}
     fused_main = {"warp_tall_proj": 5, "reproj_err": 5, "err_bwd_coords": 5}
     fused_loss = {"warp_tall": 5, "reproj_err": 5, "reproj_err_bwd": 5}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -789,18 +971,32 @@ def main() -> int:
         del slam
         eval_launches = run_eval_path(torch, wp, rp, "eval", log_dir, cap.setdefault("eval", {}),
                                       {"warp_static": 2})
+        two_launches, slam, two_ms = run_adapt_path(
+            torch, wp, rp, "two-kernel main", log_dir, cap.setdefault("two-kernel main", {}),
+            card, 12, two_kernel, pallas_fused_grad=False)
+        two_prof = phase_profile(torch, slam, card, "two-kernel profile")
+        del slam
+        log_beside("two-kernel profile", card, "K1 path / two-kernel path",
+                   (k1_ms, k1_prof), (two_ms, two_prof))
+        run_eval_path(torch, wp, rp, "two-kernel eval", log_dir,
+                      cap.setdefault("two-kernel eval", {}), {"warp_static": 2},
+                      pallas_fused_grad=False)
+        packed_launches, slam, _ = run_adapt_path(
+            torch, wp, rp, "packed main", log_dir, cap.setdefault("packed main", {}), card, 4,
+            truncated, pallas_packed=True)
+        del slam
+        _, slam, _ = run_adapt_path(
+            torch, wp, rp, "seg-skip main", log_dir, cap.setdefault("seg-skip main", {}), card,
+            2, truncated, pallas_seg_skip=True)
+        del slam
+        phase_predictor(torch, wp, rp, log_dir, cap.setdefault("predictor", {}), card)
         fused_launches, slam, fused_ms = run_adapt_path(
             torch, wp, rp, "fused main", log_dir, cap.setdefault("fused main", {}), card, 12,
             fused_main, **FUSED)
         fused_prof = phase_profile(torch, slam, card, "fused profile")
         del slam
-        if "busy_ms" in k1_prof and "busy_ms" in fused_prof:
-            log("fused profile", "K1 path / fused stack, same call: steady "
-                f"{k1_ms:.2f} / {fused_ms:.2f} ms/frame; profiled wall {k1_prof['wall_ms']:.2f} "
-                f"/ {fused_prof['wall_ms']:.2f} ms/frame; device busy {k1_prof['busy_ms']:.2f} "
-                f"/ {fused_prof['busy_ms']:.2f} ms/frame; idle share {k1_prof['idle']:.3f} / "
-                f"{fused_prof['idle']:.3f}; device activities/frame "
-                f"{k1_prof['activities']:.0f} / {fused_prof['activities']:.0f} [{card}]")
+        log_beside("fused profile", card, "K1 path / fused stack", (k1_ms, k1_prof),
+                   (fused_ms, fused_prof))
         fused_eval_launches = run_eval_path(
             torch, wp, rp, "fused eval", log_dir, cap.setdefault("fused eval", {}),
             {"warp_tall_proj_notaps": 2, "reproj_err": 2}, **FUSED)
@@ -812,23 +1008,51 @@ def main() -> int:
         cap.clear()
         phase_reference(torch, log_dir, "K1 path")
         phase_reference(torch, log_dir, "fused stack", **FUSED)
+        # the K1 path at the two-kernel routes' size tells the size's share
+        # of their card-vs-CPU difference from the route's
+        phase_reference(torch, log_dir, "K1 path", 64, 384)
+        phase_reference(torch, log_dir, "two-kernel path", 64, 384, pallas_fused_grad=False)
+        phase_reference(torch, log_dir, "packed", 64, 384, pallas_packed=True)
 
     warp_src, err_src = "tpuslam_torch/csrc/warp.cu", "tpuslam_torch/csrc/reproj.cu"
+    # (name, source, TPU kernel, launches on its path, counter, timing):
+    # K1b and K2's forward are one launch without taps, one counter; K3 and
+    # K3' are K2 with exact taps (no path calls pallas_warp), so their rows
+    # carry K2's launches and times
     kernels = [
-        ("warp_static_fused", warp_src, "tpuslam/ops/pallas_warp.py:1244", k1_launches),
-        ("warp_static", warp_src, "tpuslam/ops/pallas_warp.py:745", eval_launches),
-        ("warp_tall", warp_src, "tpuslam/ops/pallas_warp.py:955", fused_loss_launches),
-        ("warp_tall_proj", warp_src, "tpuslam/ops/pallas_warp.py:1135", fused_launches),
+        ("warp_static_fused", warp_src, "tpuslam/ops/pallas_warp.py:1244", k1_launches,
+         "warp_static_fused", "warp_static_fused"),
+        ("warp_static", warp_src, "tpuslam/ops/pallas_warp.py:745", eval_launches,
+         "warp_static", "warp_static"),
+        ("warp_static_k2", warp_src, "tpuslam/ops/pallas_warp.py:745", two_launches,
+         "warp_static", "warp_static_k2"),
+        ("warp_static_k2_trunc", warp_src, "tpuslam/ops/pallas_warp.py:745", packed_launches,
+         "warp_static_trunc", "warp_static_k2_trunc"),
+        ("warp_static_bwd", warp_src, "tpuslam/ops/pallas_warp.py:805", two_launches,
+         "warp_static_bwd", "warp_static_bwd"),
+        ("warp_static_bwd_trunc", warp_src, "tpuslam/ops/pallas_warp.py:805", packed_launches,
+         "warp_static_bwd_trunc", "warp_static_bwd_trunc"),
+        ("warp_dynamic", warp_src, "tpuslam/ops/pallas_warp.py:172", two_launches,
+         "warp_static", "warp_static_k2"),
+        ("warp_dynamic_bwd", warp_src, "tpuslam/ops/pallas_warp.py:205", two_launches,
+         "warp_static_bwd", "warp_static_bwd"),
+        ("warp_tall", warp_src, "tpuslam/ops/pallas_warp.py:955", fused_loss_launches,
+         "warp_tall", "warp_tall"),
+        ("warp_tall_proj", warp_src, "tpuslam/ops/pallas_warp.py:1135", fused_launches,
+         "warp_tall_proj", "warp_tall_proj"),
         ("warp_tall_proj_notaps", warp_src, "tpuslam/ops/pallas_warp.py:1135",
-         fused_eval_launches),
-        ("reproj_err", err_src, "tpuslam/ops/pallas_loss.py:226", fused_launches),
-        ("reproj_err_bwd", err_src, "tpuslam/ops/pallas_loss.py:261", fused_loss_launches),
-        ("err_bwd_coords", err_src, "tpuslam/ops/pallas_fused.py:118", fused_launches),
+         fused_eval_launches, "warp_tall_proj_notaps", "warp_tall_proj_notaps"),
+        ("reproj_err", err_src, "tpuslam/ops/pallas_loss.py:226", fused_launches,
+         "reproj_err", "reproj_err"),
+        ("reproj_err_bwd", err_src, "tpuslam/ops/pallas_loss.py:261", fused_loss_launches,
+         "reproj_err_bwd", "reproj_err_bwd"),
+        ("err_bwd_coords", err_src, "tpuslam/ops/pallas_fused.py:118", fused_launches,
+         "err_bwd_coords", "err_bwd_coords"),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = [dict(name=name, route="cuda", source=source, replaces=replaces,
-                 launches=launches[name], **{k: results[name][k] for k in keys})
-            for name, source, replaces, launches in kernels]
+                 launches=launches[counter], **{k: results[timing][k] for k in keys})
+            for name, source, replaces, launches, counter, timing in kernels]
     print(json.dumps({"kernels": line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

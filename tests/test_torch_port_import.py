@@ -128,21 +128,30 @@ def test_entry_points_turn_tf32_off_and_restore_it():
 
 
 def test_unported_options_are_refused(tmp_path):
-    """Options whose kernels or modules are not ported yet raise
-    NotImplementedError instead of being ignored; the flags of the ported
-    fused stack (K4-K8) are accepted and mapped."""
+    """Options whose modules are not ported yet raise NotImplementedError
+    instead of being ignored; every `pallas_*` flag is accepted and mapped,
+    the two-kernel variants (K2) and the fused stack (K4-K8) alike."""
     from tpuslam_torch.config import Config
-    from tpuslam_torch.config.schema import DepthPoseConfig, SlamConfig
+    from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig, SlamConfig
+    from tpuslam_torch.predictor import DepthPosePrediction
     from tpuslam_torch.slam import Slam
     from tpuslam_torch.train.steps import loss_config
 
-    for flag in ("pallas_packed", "pallas_seg_skip"):
-        with pytest.raises(NotImplementedError, match=flag):
-            loss_config(DepthPoseConfig(**{flag: True}))
-    fused = ("pallas_tall", "pallas_proj", "pallas_fused_loss", "pallas_fused_bwd")
-    for flag in fused:
+    flags = ("pallas_packed", "pallas_seg_skip", "pallas_tall", "pallas_proj",
+             "pallas_fused_loss", "pallas_fused_bwd")
+    for flag in flags:
         cfg = loss_config(DepthPoseConfig(**{flag: True}))
-        assert [getattr(cfg, f) for f in fused] == [f == flag for f in fused], flag
+        assert [getattr(cfg, f) for f in flags] == [f == flag for f in flags], flag
+    cfg = loss_config(DepthPoseConfig(pallas_fused_grad=False, pallas_extra_tiles=1,
+                                      pallas_group_skip=False))
+    assert (cfg.pallas_fused_grad, cfg.pallas_extra_tiles) == (False, 1)
+    pc = DepthPoseConfig(log_path=str(tmp_path), batch_size=2)
+    predictor = DepthPosePrediction(DatasetConfig(height=64, width=192), pc, device="cpu")
+    for method in ("train", "validate", "save_model", "load_model", "load_online_model"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+            getattr(predictor, method)()
+    with pytest.raises(NotImplementedError, match="encoder_weights"):
+        DepthPosePrediction(DatasetConfig(), DepthPoseConfig(resnet_pretrained=True), device="cpu")
     for slam_cfg in (dict(do_loop_closures=True), dict(use_expert=True),
                      dict(async_adaptation=True), dict(pipeline_depth=1)):
         cfg = Config()

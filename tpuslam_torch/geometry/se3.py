@@ -1,7 +1,7 @@
 """SE(3) / SO(3) primitives on torch tensors.
 
 Counterpart of `tpuslam/geometry/se3.py` (the axis-angle and quaternion
-routes and `transformation_from_parameters`); the same formulas, written so
+routes, `transformation_from_parameters` and `se3_inverse`); the same formulas, written so
 their autograd matches the JAX package's: safe norms, half-angle forms and a
 wide Taylor branch keep every gradient finite at the identity.
 
@@ -123,3 +123,11 @@ def transformation_from_parameters(
     if invert:
         return Rh @ T
     return T @ Rh
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 4, 4) SE(3) matrices: [R^T | -R^T t]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    ti = -(Rt @ T[..., :3, 3:])
+    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(T.shape[:-2] + (1, 4))
+    return torch.cat([torch.cat([Rt, ti], dim=-1), bottom], dim=-2)

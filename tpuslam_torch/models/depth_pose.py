@@ -26,6 +26,17 @@ class DepthPoseNet(nn.Module):
         self.pose_encoder = ResNetEncoder(resnet_pose, num_input_images=2)
         self.pose_decoder = PoseDecoder(num_frames_to_predict_for=2)
 
+    def depth_forward(self, image: torch.Tensor):
+        """image (B, H, W, 3) -> ({('disp', s)}, pooled stage-4 feature
+        (B, 512)); the feature doubles as the replay-buffer embedding."""
+        features = self.depth_encode(image)
+        return self.depth_decode(features), features[-1].mean((2, 3))
+
+    def pose_forward(self, image_pair: torch.Tensor):
+        """image_pair (B, H, W, 6) [earlier ++ later frame] -> (axis_angle
+        (B, 3), translation (B, 3)) of the first predicted frame."""
+        return self.pose_decode(self.pose_encode(image_pair)[-1])
+
     def depth_encode(self, image: torch.Tensor):
         """image (B, H, W, 3) -> list of 5 NCHW encoder feature maps."""
         return self.depth_encoder(image)

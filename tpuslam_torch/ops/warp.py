@@ -1,10 +1,18 @@
-"""Bilinear warp kernels K1, K4 and K5 (CUDA C++, `csrc/warp.cu`) and their
-plain versions.
+"""Bilinear warp kernels K1-K5 (CUDA C++, `csrc/warp.cu`) and their plain
+versions.
 
 Counterparts of `tpuslam/ops/pallas_warp.py`:
 
 * K1 `pallas_warp_static_fused` (`warp`): src (N, H, W, C) at coords
   (N, H, W, 2);
+* K2 `pallas_warp_static` (`warp_two_kernel`): the two-kernel warp, whose
+  forward is K1's launch without taps with f32 stores and whose backward
+  gathers the taps again to write dcoords; with `trunc` its taps are
+  truncated to bf16 as the packed and seg-skip variants gather them
+  (`_pack_row_bf16`);
+* K3 `pallas_warp` (`warp_dynamic`): the dynamic-window warp, which within
+  its window computes K2's untruncated function, so it is K2 without
+  `trunc`;
 * K4 `pallas_warp_tall` (`warp_tall`): the 2*B distinct source frames, read
   through the index map n -> (n // (S*B)) * B + n % B of the
   [direction, scale, batch] stack, never tiled S-fold;
@@ -12,19 +20,19 @@ Counterparts of `tpuslam/ops/pallas_warp.py`:
   computed in the kernel from depth (S*B, H, W, 1) and the affine camera maps
   ab (2*B, 12) of `geometry.camera.projection_affine`.
 
-One kernel serves all three.  Under autograd it runs with taps: it writes the
-warped image and the per-channel differentials d(out)/dx, d(out)/dy, so the
-backward is the elementwise contraction sum_c g * d, gated by `live` (1
-inside, 0.5 at an exact edge, 0 outside), with no second gather.  K5's
-backward then chains the coordinate cotangents to depth and ab through
-autograd of the plain projection `proj_coords_plain` (in the JAX package
-that chain is XLA, outside any kernel).  Without autograd the kernel runs
-without taps.  Sources get no gradient: camera images are inputs, never
-parameters.
+One forward kernel serves them all.  K1, K4 and K5 under autograd run it
+with taps: it writes the warped image and the per-channel differentials
+d(out)/dx, d(out)/dy, so the backward is the elementwise contraction
+sum_c g * d, gated by `live` (1 inside, 0.5 at an exact edge, 0 outside),
+with no second gather.  K5's backward then chains the coordinate cotangents
+to depth and ab through autograd of the plain projection `proj_coords_plain`
+(in the JAX package that chain is XLA, outside any kernel).  K2 and K3 run it
+without taps and with f32 stores, and their backward is the second kernel,
+`warp_grad_kernel`.  Without autograd every warp runs without taps.  Sources
+get no gradient: camera images are inputs, never parameters.
 
-The kernel is exact for any coordinates, like `bilinear_sampler`; the TPU
-kernels clamp flow that leaves their source window, which is why
-`pallas_group_skip` and `pallas_extra_tiles` do not apply here.
+The kernels are exact for any coordinates, like `bilinear_sampler`; the TPU
+kernels clamp flow that leaves their source window.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel, on
 its own device, or raises.
@@ -41,7 +49,9 @@ from tpuslam_torch.ops import build
 
 # Launch counts of the CUDA kernel by entry point (CPU calls are not counted)
 launches = dict.fromkeys((
-    "warp_static_fused", "warp_static",  # K1 with and without taps
+    "warp_static_fused",  # K1 with taps
+    "warp_static", "warp_static_trunc",  # K1 and K2 without taps, taps exact / truncated
+    "warp_static_bwd", "warp_static_bwd_trunc",  # K2's backward
     "warp_tall", "warp_tall_notaps",  # K4
     "warp_tall_proj", "warp_tall_proj_notaps",  # K5
 ), 0)
@@ -61,8 +71,10 @@ def load_library() -> ctypes.CDLL:
     if _configured is None:
         lib = build.load_library("warp")
         lib.tpuslam_warp.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.tpuslam_warp.restype = ctypes.c_int
+            ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.tpuslam_warp_grad.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.tpuslam_warp.restype = lib.tpuslam_warp_grad.restype = ctypes.c_int
         _configured = lib
     return _configured
 
@@ -97,10 +109,9 @@ def _check_proj(src2: torch.Tensor, depth: torch.Tensor, ab: torch.Tensor, S: in
     _check_src(src2, depth, ab)
 
 
-def _launch(src, coords, depth, ab, N: int, S: int, B: int, with_taps: bool, bf16_out: bool):
-    tensors = [t for t in (src, coords, depth, ab) if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("warp kernel takes contiguous inputs")
+def _launch(src, coords, depth, ab, N: int, S: int, B: int, with_taps: bool, bf16_out: bool,
+            trunc: bool = False):
+    _check_contiguous(src, coords, depth, ab)
     lib = load_library()
     _, H, W, C = src.shape
     dtype = torch.bfloat16 if bf16_out else torch.float32
@@ -112,10 +123,30 @@ def _launch(src, coords, depth, ab, N: int, S: int, B: int, with_taps: bool, bf1
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpuslam_warp(src.data_ptr(), *ptr, outs[0].data_ptr(), dx, dy,
-                               N, H, W, C, S, B, int(with_taps), int(bf16_out), stream)
+                               N, H, W, C, S, B, int(with_taps), int(bf16_out), int(trunc),
+                               stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
     return outs
+
+
+def _launch_grad(src, coords, g, trunc: bool) -> torch.Tensor:
+    _check_contiguous(src, coords, g)
+    lib = load_library()
+    N, H, W, C = src.shape
+    dcoords = torch.empty((N, H, W, 2), dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tpuslam_warp_grad(src.data_ptr(), coords.data_ptr(), g.data_ptr(),
+                                    dcoords.data_ptr(), N, H, W, C, int(trunc), stream)
+    if err != 0:
+        raise RuntimeError(f"warp backward kernel launch failed: CUDA error {err}")
+    return dcoords
+
+
+def _check_contiguous(*tensors) -> None:
+    if not all(t.is_contiguous() for t in tensors if t is not None):
+        raise ValueError("warp kernels take contiguous inputs")
 
 
 def _stored(outs, bf16_out: bool):
@@ -141,6 +172,30 @@ def warp_static_fused_plain(
     dx = (a1 - a0) * (1 - wy) + (b1 - b0) * wy
     dy = (b0 - a0) * (1 - wx) + (b1 - a1) * wx
     return out, dx, dy
+
+
+def trunc_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 values truncated to bf16 toward zero, kept as f32: the low 16 bits
+    of each word cleared, as `_pack_row_bf16` packs the taps (not rounded to
+    nearest like a cast)."""
+    return (x.contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+
+def warp_two_kernel_plain(src: torch.Tensor, coords: torch.Tensor,
+                          trunc: bool = False) -> torch.Tensor:
+    """Plain version of K2's forward (and K3's, without `trunc`):
+    `bilinear_sampler` of the source, its values truncated to bf16 when
+    `trunc`."""
+    return bilinear_sampler(trunc_bf16(src) if trunc else src, coords)
+
+
+def warp_grad_plain(src: torch.Tensor, coords: torch.Tensor, g: torch.Tensor,
+                    trunc: bool = False) -> torch.Tensor:
+    """Plain version of K2's backward (and K3'): the tap contraction of
+    `warp_static_fused_plain` on the (truncated) source with the cotangent g
+    (N, H, W, C), gated by `live` -> dcoords (N, H, W, 2) f32."""
+    _, dx, dy = warp_static_fused_plain(trunc_bf16(src) if trunc else src, coords)
+    return live_coords_grad(coords, *contract_taps(g, dx, dy))
 
 
 def tall_sources(src2: torch.Tensor, S: int) -> torch.Tensor:
@@ -202,15 +257,35 @@ def warp_static_fused(src, coords, bf16_out: bool = False):
     return tuple(outs)
 
 
-def warp_static(src, coords, bf16_out: bool = False):
-    """K1 without taps: the warped image, stored as bf16 when `bf16_out`."""
+def warp_static(src, coords, bf16_out: bool = False, trunc: bool = False):
+    """K1 without taps, and K2's forward: the warped image, stored as bf16
+    when `bf16_out`; with `trunc` (f32 stores only) the taps are truncated
+    to bf16."""
     _check_coords(src, coords)
+    if trunc and bf16_out:
+        raise ValueError("truncated taps are stored as f32 only")
     if src.device.type == "cpu":
         with torch.no_grad():
-            return _stored((bilinear_sampler(src, coords),), bf16_out)[0]
-    out = _launch(src, coords, None, None, src.shape[0], 1, src.shape[0], False, bf16_out)[0]
-    launches["warp_static"] += 1
+            return _stored((warp_two_kernel_plain(src, coords, trunc),), bf16_out)[0]
+    out = _launch(src, coords, None, None, src.shape[0], 1, src.shape[0], False, bf16_out,
+                  trunc)[0]
+    launches["warp_static_trunc" if trunc else "warp_static"] += 1
     return out
+
+
+def warp_static_bwd(src, coords, g, trunc: bool = False):
+    """K2's backward: dcoords (N, H, W, 2) f32 for the cotangent g of the
+    warped image, the taps gathered again (truncated when `trunc`)."""
+    _check_coords(src, coords)
+    if g.shape != src.shape or g.dtype != torch.float32 or g.device != src.device:
+        raise ValueError(f"g must be f32 {tuple(src.shape)} on {src.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if src.device.type == "cpu":
+        with torch.no_grad():
+            return warp_grad_plain(src, coords, g, trunc)
+    dcoords = _launch_grad(src, coords, g, trunc)
+    launches["warp_static_bwd_trunc" if trunc else "warp_static_bwd"] += 1
+    return dcoords
 
 
 def warp_tall_taps(src2, coords, S: int, bf16_out: bool = False):
@@ -321,6 +396,23 @@ class WarpFused(torch.autograd.Function):
         return (None, None, dcoords) + (None,) * ctx.n_args
 
 
+class WarpRecompute(torch.autograd.Function):
+    """K2, the two-kernel warp (`_static_fwd` / `_static_bwd`): the forward
+    stores only the f32 warped image; the backward gathers the taps again
+    and writes dcoords."""
+
+    @staticmethod
+    def forward(ctx, src, coords, trunc: bool):
+        ctx.save_for_backward(src, coords)
+        ctx.trunc = trunc
+        return warp_static(src, coords.detach(), False, trunc)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, coords = ctx.saved_tensors
+        return None, warp_static_bwd(src, coords, g.float().contiguous(), ctx.trunc), None
+
+
 class WarpTallProj(torch.autograd.Function):
     """K5 with the fused gradient (`_tall_proj_fwd` / `_tall_proj_bwd`):
     the tap contraction, then the projection chain to depth and ab."""
@@ -351,6 +443,21 @@ def warp(src: torch.Tensor, coords: torch.Tensor, bf16_out: bool = False) -> tor
     if grad_wanted(coords):
         return WarpFused.apply(warp_static_fused, src, coords, bf16_out)
     return warp_static(src, coords, bf16_out)
+
+
+def warp_two_kernel(src: torch.Tensor, coords: torch.Tensor, trunc: bool = False) -> torch.Tensor:
+    """The two-kernel warp (K2) of src (N, H, W, C) at coords (N, H, W, 2),
+    stored in f32: under autograd the backward is K2's gather kernel; with
+    `trunc` both kernels read the taps truncated to bf16."""
+    if grad_wanted(coords):
+        return WarpRecompute.apply(src, coords, trunc)
+    return warp_static(src, coords, False, trunc)
+
+
+def warp_dynamic(src: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """The dynamic-window warp (K3, `pallas_warp`, and K3' under autograd),
+    exact for any coordinates: K2 with exact taps."""
+    return warp_two_kernel(src, coords)
 
 
 def warp_tall(src2: torch.Tensor, coords: torch.Tensor, S: int,

@@ -36,16 +36,9 @@ from tpuslam_torch.geometry.se3 import transformation_from_parameters
 from tpuslam_torch.losses.photometric import identity_reprojection, total_loss
 from tpuslam_torch.models.depth_pose import DepthPoseNet, l2_normalize
 from tpuslam_torch.ops.reproj import reproj_err, warp_reproj_err, warp_reproj_err_proj
-from tpuslam_torch.ops.warp import warp, warp_tall, warp_tall_proj
+from tpuslam_torch.ops.warp import warp, warp_tall, warp_tall_proj, warp_two_kernel
 from tpuslam_torch.train.batch import FrameBatch
 from tpuslam_torch.train.state import TrainState
-
-# DepthPoseConfig flags whose TPU kernels have no port yet, with the
-# ROADMAP.md Queue 2 entry that ports them
-_UNPORTED_FLAGS = {
-    "pallas_packed": "K2 (packed taps)",
-    "pallas_seg_skip": "K2 (seg-skip sweep)",
-}
 
 
 class LossConfig(NamedTuple):
@@ -56,11 +49,21 @@ class LossConfig(NamedTuple):
     max_depth: Optional[float] = None
     disparity_smoothness: float = 1e-3
     velocity_loss_scaling: Optional[float] = 0.05
-    # True: the warp runs kernel K1 (CUDA, `ops/warp.py`); False: the plain
+    # True: the warp runs the CUDA kernels of `ops/warp.py`; False: the plain
     # differentiable sampler `bilinear_sampler`
     use_pallas_warp: bool = True
-    # store the warp's outputs (warped image and tap differentials) as bf16
+    # store the warp's outputs (warped image and tap differentials) as bf16,
+    # where the JAX package would run its kernel (`warp_and_loss`)
     pallas_bf16_out: bool = True
+    # the static warp variants of the JAX package: `pallas_fused_grad` runs
+    # K1 (stored taps); without it, or under an explicit `pallas_packed` or
+    # `pallas_seg_skip`, the two-kernel warp K2 runs, its taps truncated to
+    # bf16 for packed and seg-skip.  `pallas_extra_tiles` sets the JAX
+    # package's height gate H >= 8 + 16 * extra_tiles of the static kernels.
+    pallas_packed: bool = False
+    pallas_seg_skip: bool = False
+    pallas_fused_grad: bool = True
+    pallas_extra_tiles: int = 2
     # the fused warp -> loss stack (JAX routing, `warp_and_loss`):
     # K4 deduplicated-source warp (`pallas_tall`), with K5's in-kernel
     # projection (`pallas_proj`, needs `pallas_tall`); K6 error maps with
@@ -79,21 +82,18 @@ def loss_config(pc) -> LossConfig:
     """The LossConfig of a `DepthPoseConfig`, with every `pallas_*` flag mapped.
 
     `pallas_warp` selects the warp kernels and `pallas_bf16_out` their bf16
-    storage; `pallas_tall`, `pallas_proj`, `pallas_fused_loss` and
-    `pallas_fused_bwd` select the fused stack (K4-K8) as the JAX package
-    routes them.  The JAX package runs those kernels only at H % 8 == 0,
-    W % 128 == 0 and W >= 384 and silently computes the same function in XLA
-    below that; the port's kernels have no shape limit, so they run at every
-    shape.  `pallas_group_skip` and `pallas_extra_tiles` shape only the TPU
-    kernels' source window, so they have no effect on the port's exact
-    kernels; nor has `pallas_fused_grad`, whose two settings give the same
-    gradient (K1 stores the tap differentials either way).  The flags of
-    kernels not ported yet raise NotImplementedError."""
-    for flag, entry in _UNPORTED_FLAGS.items():
-        if getattr(pc, flag):
-            raise NotImplementedError(
-                f"{flag}=True needs kernel {entry}, not ported yet (ROADMAP.md Queue 2)"
-            )
+    storage; `pallas_fused_grad`, `pallas_packed` and `pallas_seg_skip`
+    choose between K1 and the two-kernel warp K2 (exact or truncated taps);
+    `pallas_tall`, `pallas_proj`, `pallas_fused_loss` and `pallas_fused_bwd`
+    select the fused stack (K4-K8).  `warp_and_loss` routes them as the JAX
+    package does.  The JAX package runs its warp kernels only at H % 8 == 0,
+    W % 128 == 0 and W >= 384 (the static ones also at H >= 8 + 16 *
+    `pallas_extra_tiles`) and runs its f32 sampler below that; the port's
+    kernels have no shape limit and run at every shape, but store bf16 and
+    truncate taps only where the JAX package's kernel would run, so both
+    settings of `pallas_fused_grad` give the JAX package's result.
+    `pallas_group_skip` shapes only the TPU kernels' sweep and is not
+    mapped."""
     if pc.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported dtype {pc.dtype!r}")
     return LossConfig(
@@ -104,6 +104,10 @@ def loss_config(pc) -> LossConfig:
         velocity_loss_scaling=pc.velocity_loss_scaling,
         use_pallas_warp=pc.pallas_warp,
         pallas_bf16_out=pc.pallas_bf16_out,
+        pallas_packed=pc.pallas_packed,
+        pallas_seg_skip=pc.pallas_seg_skip,
+        pallas_fused_grad=pc.pallas_fused_grad,
+        pallas_extra_tiles=pc.pallas_extra_tiles,
         pallas_tall=pc.pallas_tall,
         pallas_proj=pc.pallas_proj,
         pallas_fused_loss=pc.pallas_fused_loss,
@@ -112,9 +116,9 @@ def loss_config(pc) -> LossConfig:
     )
 
 
-def _networks(cfg: LossConfig, device: torch.device):
+def _networks(bf16: bool, device: torch.device):
     """Autocast context for the networks (bf16 convs), a no-op for float32."""
-    if not cfg.bf16_networks:
+    if not bf16:
         return nullcontext()
     return torch.autocast(device.type, dtype=torch.bfloat16)
 
@@ -160,15 +164,23 @@ def warp_and_loss(
     `aa`/`tr` are the doubled-batch (2B, 3) pose outputs ordered
     [pair (prev, cur); pair (cur, next)].  All (direction, scale) warps fold
     into one warp of the 2*S*B-image stack [direction, scale, batch].  The
-    routing is the JAX package's: with `pallas_tall` the warp reads the 2*B
-    distinct sources (K4), and with `pallas_proj` too it projects in the
-    kernel from depth and the affine maps of `projection_affine` (K5);
-    otherwise the sources are tiled S-fold and K1 warps the (2*S*B, H, W, 2)
-    coordinates.  `pallas_fused_loss` computes all error maps in one kernel
-    (K6) and hands them to `total_loss`; with `pallas_tall` and
-    `pallas_fused_bwd` as well, the warp and the maps form one composite
-    whose backward is one kernel (K7, or K8 with proj).  The kernels have no
-    shape limits, so every resolution takes them.
+    routing is the JAX package's (`tpuslam/train/steps.py:304-396`): with
+    `pallas_tall` the warp reads the 2*B distinct sources (K4), and with
+    `pallas_proj` too it projects in the kernel from depth and the affine
+    maps of `projection_affine` (K5); otherwise the sources are tiled S-fold
+    and K1 (`pallas_fused_grad`, no explicit variant) or the two-kernel K2
+    warps the (2*S*B, H, W, 2) coordinates.  `pallas_fused_loss` computes all
+    error maps in one kernel (K6) and hands them to `total_loss`; with
+    `pallas_tall` and `pallas_fused_bwd` as well, the warp and the maps form
+    one composite whose backward is one kernel (K7, or K8 with proj).
+
+    The kernels have no shape limits, so every resolution takes them.  What
+    they store follows the JAX package's gate, where its kernels run:
+    `pallas_ok` (H % 8 == 0, W % 128 == 0, W >= 384) for the tall routes and
+    `static_ok` (also H >= 8 + 16 * `pallas_extra_tiles`) for K1 and K2.
+    Inside it K1, K4 and K5 store bf16 under `pallas_bf16_out`, and K2
+    truncates its taps for packed or seg-skip; K2 always stores f32.  Below
+    it every warp stores f32 with exact taps, like the JAX package's sampler.
     """
     H, W = batch.height, batch.width
     B = batch.batch_size
@@ -187,7 +199,10 @@ def warp_and_loss(
         outputs[("disp", s)] = disp
 
     depth_stack = torch.cat(depths)  # (S*B, H, W, 1)
+    pallas_ok = H % 8 == 0 and W % 128 == 0 and W >= 384
+    static_ok = pallas_ok and H >= 8 + 16 * cfg.pallas_extra_tiles
     use_tall = cfg.use_pallas_warp and cfg.pallas_tall
+    tall_bf16 = cfg.pallas_bf16_out and pallas_ok
     use_proj = use_tall and cfg.pallas_proj
     target = batch.frame(0).contiguous()
     if use_proj:
@@ -209,20 +224,24 @@ def warp_and_loss(
             # exact because the loss reads the error maps
             if use_proj:
                 err_all, warped = warp_reproj_err_proj(
-                    src2, depth_stack, ab, target, S, cfg.pallas_bf16_out)
+                    src2, depth_stack, ab, target, S, tall_bf16)
             else:
-                err_all, warped = warp_reproj_err(src2, coords, target, S,
-                                                  cfg.pallas_bf16_out)
+                err_all, warped = warp_reproj_err(src2, coords, target, S, tall_bf16)
         elif use_proj:
-            warped = warp_tall_proj(src2, depth_stack, ab, S, cfg.pallas_bf16_out)
+            warped = warp_tall_proj(src2, depth_stack, ab, S, tall_bf16)
         else:
-            warped = warp_tall(src2, coords, S, cfg.pallas_bf16_out)
+            warped = warp_tall(src2, coords, S, tall_bf16)
     else:
         src = torch.cat([_tile(batch.frame(-1), S), _tile(batch.frame(1), S)])
-        if cfg.use_pallas_warp:
-            warped = warp(src, coords, cfg.pallas_bf16_out)
-        else:
+        # an explicitly requested packed or seg-skip variant takes the
+        # two-kernel route
+        explicit = cfg.pallas_packed or cfg.pallas_seg_skip
+        if not cfg.use_pallas_warp:
             warped = bilinear_sampler(src, coords)
+        elif cfg.pallas_fused_grad and not explicit:
+            warped = warp(src, coords, cfg.pallas_bf16_out and static_ok)
+        else:
+            warped = warp_two_kernel(src, coords, static_ok and explicit)
     for fi, f in enumerate((-1, 1)):
         for si, s in enumerate(cfg.scales):
             start = (fi * S + si) * B
@@ -273,7 +292,7 @@ def warp_and_loss(
 def _decode_and_loss(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig,
                      depth_feats, pose_feat, **kwargs):
     """Decoder halves + warps + losses, given encoder features."""
-    with _networks(cfg, pose_feat.device):
+    with _networks(cfg.bf16_networks, pose_feat.device):
         disps = model.depth_decode(depth_feats)
         aa, tr = model.pose_decode(pose_feat)
     return warp_and_loss(disps, aa.float(), tr.float(), batch, cfg, **kwargs)
@@ -283,7 +302,7 @@ def _frozen_features(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig):
     """Encoder features of the whole batch, outside autograd: frozen weights,
     running BN statistics and fixed inputs make them the same in every
     adaptation iteration, so they are computed once per frame."""
-    with torch.no_grad(), _networks(cfg, batch.rgb.device):
+    with torch.no_grad(), _networks(cfg.bf16_networks, batch.rgb.device):
         depth_feats = model.depth_encode(batch.frame(0, aug=True))
         pose_feats = model.pose_encode(_pose_pairs(batch))
     return depth_feats, pose_feats[-1]
@@ -292,7 +311,7 @@ def _frozen_features(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig):
 @full_fp32()
 def embed(model: DepthPoseNet, image: torch.Tensor, cfg: LossConfig) -> torch.Tensor:
     """L2-normalised pooled stage-4 depth-encoder feature of NHWC images."""
-    with torch.no_grad(), _networks(cfg, image.device):
+    with torch.no_grad(), _networks(cfg.bf16_networks, image.device):
         feat = model.depth_encode(image)[-1]
     return l2_normalize(feat.mean((2, 3)))
 
@@ -376,11 +395,36 @@ def adapt_step(
 @full_fp32()
 def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch):
     """No-grad forward: losses + outputs + normalised embedding (the
-    `adaptation: false` SLAM path).  The warp runs without taps (K1, K4 or
-    K5, as the flags route it) and no backward kernel runs."""
+    `adaptation: false` SLAM path).  The warp runs without taps (K1, K2, K4
+    or K5, as the flags route it) and no backward kernel runs."""
     depth_feats, pose_feat = _frozen_features(model, batch, cfg)
     losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feat)
     outputs[("feat4",)] = depth_feats[-1].mean((2, 3))
     outputs[("embedding",)] = l2_normalize(outputs[("feat4",)])
     outputs[("retire_packed",)] = _pack_retire(losses, outputs)
     return losses, outputs
+
+
+@torch.no_grad()
+@full_fp32()
+def predict_pose_step(model: DepthPoseNet, image_0: torch.Tensor, image_1: torch.Tensor,
+                      bf16_networks: bool = False):
+    """Relative pose between two NHWC image batches (reference
+    `predict_pose`): channel-concatenated pair -> pose network -> forward
+    transform (B, 4, 4), with the identity (6, 6) as placeholder covariance."""
+    pair = torch.cat([image_0, image_1], dim=-1)
+    with _networks(bf16_networks, pair.device):
+        aa, tr = model.pose_forward(pair)
+    T = transformation_from_parameters(aa.float(), tr.float(), invert=False)
+    return T, torch.eye(6, device=pair.device)
+
+
+@torch.no_grad()
+@full_fp32()
+def predict_depth_step(model: DepthPoseNet, image: torch.Tensor, min_depth=0.1,
+                       max_depth=None, bf16_networks: bool = False):
+    """Depth (B, H, W, 1) of NHWC images (reference `predict_from_image`) and
+    the normalised pooled stage-4 depth-encoder feature (B, 512)."""
+    with _networks(bf16_networks, image.device):
+        disps, feat4 = model.depth_forward(image)
+    return disp_to_depth(disps[("disp", 0)], min_depth, max_depth), l2_normalize(feat4)
