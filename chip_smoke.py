@@ -41,11 +41,14 @@ Phases, each printing lines tagged with its name and raising on failure
 14. kernels: every kernel (K1 with and without taps, K2's forward and
     backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
-    adversarial inputs and on the inputs the paths gave it, then timed on
-    the latter beside the plain version, the bound and, for the warps
-    without taps and the backward gathers, torch's grid_sample forward and
-    backward (K3 and K3' are K2 with exact taps, `warp_dynamic`: no path
-    calls them, and their rows carry K2's numbers);
+    adversarial inputs and on the inputs the paths gave it (the error-map
+    kernels also with ties and clamped SSIM across their tile boundaries,
+    at shapes no tile divides, at H = 2, at W = 2 and at C = 4), then timed
+    on the latter beside the plain version, the bound and, for the warps
+    without taps (K2's forward on the eval path too) and the backward
+    gathers, torch's grid_sample forward and backward (K3 and K3' are K2
+    with exact taps, `warp_dynamic`: no path calls them, and their rows
+    carry K2's numbers);
 15. reference: one adaptation step on the card and on the CPU at a small
     size, with the K1 path, the fused stack, the two-kernel path and the
     packed variant (and the K1 path again at their size), which must agree.
@@ -216,25 +219,33 @@ def proj_inputs(device, B: int):
     return src2, depth.contiguous(), ab.contiguous()
 
 
-def err_inputs(device, n: int, B: int):
-    """preds (n, H, W, C), targets (B, H, W, C), error cotangent g and tap
+def err_inputs(device, n: int, B: int, h: int = H, w: int = W, c: int = C):
+    """preds (n, h, w, c), targets (B, h, w, c), error cotangent g and tap
     differentials, with: a region where pred equals its target exactly
     (|y - x| = 0) touching rows and columns 0 and 1; another touching rows
-    and columns H-2, H-1 and W-2, W-1; constant equal patches (SSIM = 1 on
+    and columns h-2, h-1 and w-2, w-1; constant equal patches (SSIM = 1 on
     the clamp's edge); and patches where pred is target scaled by 1 + 2^-20,
-    where rounding puts SSIM above 1 and the clamp is active."""
+    where rounding puts SSIM above 1 and the clamp is active.  A second set
+    of tie, constant and clamp-active patches straddles the kernels' interior
+    tile boundaries (rows 16, 32 and 48, columns 64, 128 and 192).  Patches
+    past a small shape's edge are cut by the slicing."""
     import torch
 
-    g = torch.Generator(device=device).manual_seed(n + 100)
-    target = torch.rand((B, H, W, C), generator=g, device=device)
-    preds = torch.rand((n, H, W, C), generator=g, device=device)
+    g = torch.Generator(device=device).manual_seed(n + 100 + h + w)
+    target = torch.rand((B, h, w, c), generator=g, device=device)
+    preds = torch.rand((n, h, w, c), generator=g, device=device)
     preds[0, :40, :100] = target[0, :40, :100]
     preds[1 % n, -30:, -50:] = target[1 % B, -30:, -50:]
     target[0, 60:90, 200:260] = 0.5
     preds[0, 60:90, 200:260] = 0.5
     preds[0, 100:130, 300:400] = target[0, 100:130, 300:400] * (1 + 2.0 ** -20)
-    gerr = torch.randn((n, H, W), generator=g, device=device)
-    taps = [torch.randn((n, H, W, C), generator=g, device=device) for _ in range(2)]
+    k = 2 % n
+    preds[k, 12:21, 58:71] = target[k % B, 12:21, 58:71]  # ties across row 16, column 64
+    target[k % B, 27:38, 122:135] = 0.25  # constant and equal across row 32, column 128
+    preds[k, 27:38, 122:135] = 0.25
+    preds[k, 42:55, 184:201] = target[k % B, 42:55, 184:201] * (1 + 2.0 ** -20)  # clamp
+    gerr = torch.randn((n, h, w), generator=g, device=device)
+    taps = [torch.randn((n, h, w, c), generator=g, device=device) for _ in range(2)]
     return preds, target, gerr, taps
 
 
@@ -657,11 +668,18 @@ def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
                activities=len(spans) / frames, data_ms=1e3 * data_s / frames)
     top = ", ".join(f"{name[:60]} {us / 1e3 / frames:.3f}" for name, us in by_name.most_common(8))
+    ours = Counter()
+    for name, us in by_name.items():
+        for kernel in ("warp_kernel", "warp_grad_kernel", "err_fwd_kernel", "err_bwd_kernel"):
+            if kernel in name:
+                ours[kernel] += us
     log(phase, f"{frames} frames: wall {wall_ms:.2f} ms/frame, synthetic frame "
         f"{out['data_ms']:.2f} ms/frame, device busy {busy_ms:.2f} ms/frame "
         f"(idle share {out['idle']:.3f}), {out['activities']:.0f} device "
         f"activities/frame [{card}]")
     log(phase, f"top device time, ms/frame: {top}")
+    log(phase, "the port's kernels, ms/frame: "
+        + ", ".join(f"{k} {us / 1e3 / frames:.3f}" for k, us in ours.items()))
     return out
 
 
@@ -784,6 +802,11 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
     e6 = [check_err(torch, rp, preds, target, gerr, dx, dy, "adversarial preds"),
           check_err(torch, rp, *k7, "the fused main path's inputs"),
           check_err(torch, rp, *k6b, *k7[3:], "the fused-loss path's preds and g")]
+    # shapes that no tile divides, the smallest the pools take, and a channel
+    # count other than 3 (the kernels' other staging)
+    for shape in ((6, 3, 50, 130), (4, 2, 2, 70), (3, 1, 37, 2), (2, 1, 40, 70, 4)):
+        preds, target, gerr, (dx, dy) = err_inputs(dev, *shape)
+        e6.append(check_err(torch, rp, preds, target, gerr, dx, dy, "adversarial preds"))
     for name, args in (("fused eval", cap["fused eval"]["reproj_err_fwd"]),
                        ("fused loss", cap["fused loss"]["reproj_err_fwd"])):
         e, ep = rp.reproj_err_fwd(*args), rp.reproj_err_plain(*args)
@@ -906,11 +929,10 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
             worst(e2, ["bwd_trunc" if trunc else "bwd_exact"]),
             _grid_sample_bwd_ms(torch, src, coords, g), "grid_sample backward")
     src, coords = k2e[:2]
-    ms_eval = device_ms(torch, lambda: wp.warp_static(src, coords), "warp_kernel")
-    bms_eval, _ = bound_ms((src, coords), (src,), src.shape[0] * H * W * fwd_flops)
-    log("kernels", f"K2's forward on the two-kernel eval path's inputs "
-        f"{tuple(src.shape)}: kernel {ms_eval:.4f} ms (device, L2 flushed); bound "
-        f"{bms_eval:.4f} ms [{card}]")
+    timed(torch, card, "K2's forward on the two-kernel eval path's inputs",
+          lambda: wp.warp_static(src, coords), lambda: wp.warp_two_kernel_plain(src, coords),
+          "warp_kernel", (src, coords), (src,), src.shape[0] * H * W * fwd_flops,
+          worst(e2, ["fwd_exact"]), _grid_sample_ms(torch, src, coords))
 
     # K4 reads each of its 2*B sources once; K1 reads the S-fold tiled copy
     src2, coords, n_s, bf16 = k4

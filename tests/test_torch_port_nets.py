@@ -77,6 +77,22 @@ def test_decoders_match(nets):
     np.testing.assert_allclose(tr.numpy(), np.asarray(want_tr), atol=1e-6)
 
 
+def test_depth_path_at_32x64(nets):
+    """depth_encode -> depth_decode at 32x64, where the stage-4 map has one
+    row: the decoder's reflection pad repeats it, as jnp.pad does."""
+    model, variables, port = nets
+    x = np.random.default_rng(5).uniform(size=(2, 32, 64, 3)).astype(np.float32)
+    feats = model.apply(variables, jnp.asarray(x), method=JaxNet.depth_encode)
+    assert feats[-1].shape[1:3] == (1, 2)
+    want = model.apply(variables, feats, method=JaxNet.depth_decode)
+    with torch.no_grad():
+        got = port.depth_decode(port.depth_encode(torch.from_numpy(x)))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-4,
+                                   err_msg=str(k))
+
+
 def test_state_dict_keys_are_monodepth2_names(nets):
     """The port's state dict carries the reference checkpoint names that
     tpuslam/checkpoint/torch_import.py reads, and every key is mapped."""

@@ -22,6 +22,7 @@ from tpuslam.ops.pallas_fused import warp_reproj_err as jax_warp_reproj_err
 from tpuslam.ops.pallas_fused import warp_reproj_err_proj as jax_warp_reproj_err_proj
 from tpuslam.ops.pallas_loss import pallas_reproj_err
 from tpuslam.ops.pallas_warp import proj_coords_xla
+from tpuslam_torch.losses.photometric import reprojection_loss
 from tpuslam_torch.ops import reproj as rp
 
 torch.set_num_threads(1)
@@ -119,6 +120,71 @@ def test_reproj_err_at_reflected_borders_and_exact_ties(rng):
     l1_only = np.broadcast_to(-0.15 / C * g[0, :9, :37, None], (9, 37, C))
     np.testing.assert_allclose(dgot[0, :9, :37], l1_only, atol=1e-6)
     np.testing.assert_allclose(dwant[0, :9, :37], l1_only, atol=1e-6)
+
+
+def _reflect_multiplicity(n):
+    """M[r, q]: how often pixel q sits in the reflected 3-window of error
+    pixel r (row -1 is row 1, row n is row n-2)."""
+    m = np.zeros((n, n))
+    for r in range(n):
+        for k in (r - 1, r, r + 1):
+            m[r, -k if k < 0 else (2 * n - 2 - k if k >= n else k)] += 1
+    return torch.from_numpy(m)
+
+
+def _err_bwd_two_stages(x, y, g):
+    """d err / d pred as the error-map kernels compute it, in float64: first
+    each error pixel r's pool-adjoint coefficients (d err_r / d(mx, P(xx),
+    P(xy)) times g_r / C, gated by the clamp's `live`), then for each pred
+    pixel q the sum over its 3x3 neighbours r of w_rq / 9 (cm_r + 2 x_q
+    cxx_r + y_q cxy_r), plus the L1 term with sign(0) = +1."""
+    C = x.shape[-1]
+
+    def pool(a):  # reflect-padded 3x3 mean, rows then columns
+        a = torch.cat([a[:, 1:2], a, a[:, -2:-1]], 1)
+        a = torch.cat([a[:, :, 1:2], a, a[:, :, -2:-1]], 2)
+        a = (a[:, :-2] + a[:, 1:-1] + a[:, 2:]) / 3
+        return (a[:, :, :-2] + a[:, :, 1:-1] + a[:, :, 2:]) / 3
+
+    mx, my, pxx, pyy, pxy = pool(x), pool(y), pool(x * x), pool(y * y), pool(x * y)
+    n1, n2 = 2 * mx * my + 1e-4, 2 * (pxy - mx * my) + 9e-4
+    d1, d2 = mx * mx + my * my + 1e-4, (pxx - mx * mx) + (pyy - my * my) + 9e-4
+    num, den = n1 * n2, d1 * d2
+    s = (1 - num / den) / 2
+    live = torch.where((s > 0) & (s < 1), 1.0, torch.where((s == 0) | (s == 1), 0.5, 0.0)).double()
+    k = 0.85 * live * g[..., None] / C * 0.5 / den
+    dn1, dn2, dd1, dd2 = -k * n2, -k * n1, k * num / den * d2, k * num / den * d1
+    cm, cxx, cxy = 2 * (my * (dn1 - dn2) + mx * (dd1 - dd2)), dd2, 2 * dn2
+    mh, mw = _reflect_multiplicity(x.shape[1]), _reflect_multiplicity(x.shape[2])
+
+    def gather(coef):
+        return torch.einsum("rq,sp,nrsc->nqpc", mh, mw, coef) / 9
+
+    l1 = -0.15 * torch.where(y - x >= 0, 1.0, -1.0).double() / C * g[..., None]
+    return gather(cm) + 2 * x * gather(cxx) + y * gather(cxy) + l1, s
+
+
+def test_backward_decomposition_matches_autograd(rng):
+    """The error-map kernels' backward in two stages (per-error-pixel
+    coefficients, then the 3x3 gather with the reflect multiplicities w_rq)
+    against autograd of the plain version's function (`reproj_err_plain` is
+    `reprojection_loss` against target n % B, here in float64) within 1e-10,
+    at an 11 x 13 size where most pixels touch a reflected border, with
+    exact ties (SSIM on the clamp's edge) and pixels where rounding puts SSIM
+    past the clamp."""
+    n, b, h, w = 4, 2, 11, 13
+    target = rng.uniform(size=(b, h, w, C))
+    preds = rng.uniform(size=(n, h, w, C))
+    preds[0, :5, :6] = target[0, :5, :6]  # exact ties, touching row 0 and column 0
+    preds[1, 4:, 7:] = target[1, 4:, 7:]  # and the last row and column
+    preds[2] = target[0] * (1 + 2.0 ** -30)  # SSIM rounds to either side of 1
+    g = torch.from_numpy(rng.normal(size=(n, h, w)))
+    x, y = torch.from_numpy(preds), rp._targets(torch.from_numpy(target), n)
+    got, s = _err_bwd_two_stages(x, y, g)
+    assert (s < 0).any() and (s == 0).any() and (s > 0).any()  # clamped, on the edge, live
+    p = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(reprojection_loss(p, y), p, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
 
 
 def _coords(rng):

@@ -20,6 +20,17 @@ import torch.nn.functional as F
 DECODER_CHANNELS = (16, 32, 64, 128, 256)
 
 
+def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
+    """Reflection pad of one pixel on H and W of an NCHW tensor, as
+    `jnp.pad(mode="reflect")`: an axis of size 1 (the stage-4 map at H or
+    W = 32) repeats its one row, where torch's reflect pad refuses it."""
+    h, w = x.shape[-2:]
+    if h > 1 and w > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if w > 1 else "replicate")
+    return F.pad(x, (0, 0, 1, 1), mode="reflect" if h > 1 else "replicate")
+
+
 class Conv3x3(nn.Module):
     """Reflection-pad-1 + 3x3 valid conv."""
 
@@ -28,7 +39,7 @@ class Conv3x3(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+        return self.conv(reflect_pad1(x))
 
 
 class ConvBlock(nn.Module):

@@ -44,6 +44,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
 
 
+def nvcc_command(source: Path, out: Path, flags: Iterable[str] = ()) -> list:
+    """The nvcc command line that builds `source` into the shared library
+    `out` for sm_90a."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(source)]
+
+
 def _library_path(name: str) -> Path:
     source, flags = SOURCES[name]
     digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(flags).encode())
@@ -61,9 +68,8 @@ def build_kernels(names: Optional[Iterable[str]] = None) -> None:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         source, flags = SOURCES[name]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC / source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        proc = subprocess.Popen(nvcc_command(CSRC / source, tmp, flags), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
         jobs.append((name, so, tmp, proc, time.perf_counter()))
     failed = []
     for name, so, tmp, proc, t0 in jobs:

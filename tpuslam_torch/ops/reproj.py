@@ -40,18 +40,22 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on `lib`."""
+    lib.tpuslam_reproj_err.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tpuslam_reproj_err_bwd.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tpuslam_reproj_err.restype = ctypes.c_int
+    lib.tpuslam_reproj_err_bwd.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load the error-map library."""
     global _configured
     if _configured is None:
-        lib = build.load_library("reproj")
-        lib.tpuslam_reproj_err.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.tpuslam_reproj_err_bwd.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.tpuslam_reproj_err.restype = ctypes.c_int
-        lib.tpuslam_reproj_err_bwd.restype = ctypes.c_int
-        _configured = lib
+        _configured = declare(build.load_library("reproj"))
     return _configured
 
 
@@ -68,6 +72,9 @@ def _check(preds: torch.Tensor, target: torch.Tensor, g=None, dx=None, dy=None) 
                          f"need (k*B, H, W, C) and (B, H, W, C)")
     if H < 2 or W < 2:
         raise ValueError(f"the reflect-padded pools need H, W >= 2, got {(H, W)}")
+    if preds.is_cuda and (N > 65535 or H * W * C >= 2**31):
+        raise ValueError(f"the kernels take N <= 65535 images of H * W * C < 2^31 values, "
+                         f"got {tuple(preds.shape)}")
     if g is not None and (g.shape != (N, H, W) or g.dtype != torch.float32):
         raise ValueError(f"g must be (N, H, W) f32, got {tuple(g.shape)} {g.dtype}")
     for t in (dx, dy):
