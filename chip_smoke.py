@@ -43,7 +43,10 @@ Phases, each printing lines tagged with its name and raising on failure
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it (the error-map
     kernels also with ties and clamped SSIM across their tile boundaries,
-    at shapes no tile divides, at H = 2, at W = 2 and at C = 4), then timed
+    at shapes no tile divides, at H = 2, at W = 2 and at C = 4; the warps
+    at shapes no run of columns or 16-byte vector divides, at H = 2, W = 2,
+    C = 4 and C = 1, and with coordinates and depth at an odd element
+    offset), then timed
     on the latter beside the plain version, the bound and, for the warps
     without taps (K2's forward on the eval path too) and the backward
     gathers, torch's grid_sample forward and backward (K3 and K3' are K2
@@ -172,51 +175,6 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------
-
-
-def warp_inputs(device, n: int, n_src: int = None):
-    """n_src distinct images in [0, 1] (n by default) and n pixel-grid
-    coordinate fields plus smooth random flow, with points outside the
-    image, exact-edge ties and integer coordinates."""
-    import torch
-    import torch.nn.functional as F
-
-    g = torch.Generator(device=device).manual_seed(n)
-    src = torch.rand((n_src or n, H, W, C), generator=g, device=device)
-    ys, xs = torch.meshgrid(torch.arange(H, device=device, dtype=torch.float32),
-                            torch.arange(W, device=device, dtype=torch.float32),
-                            indexing="ij")
-    coarse = torch.randn((n, 2, 6, 20), generator=g, device=device) * 6.0
-    flow = F.interpolate(coarse, size=(H, W), mode="bilinear", align_corners=False)
-    coords = torch.stack([xs + flow[:, 0], ys + flow[:, 1]], dim=-1)
-    coords[:, :, :8, 0] = -3.5  # left of the image
-    coords[:, 100:104, :, 1] = H + 20.0  # below the image
-    coords[:, 0, :, 1] = 0.0  # top edge, exact tie
-    coords[:, :, -1, 0] = W - 1.0  # right edge, exact tie
-    coords[:, 50:52] = torch.floor(coords[:, 50:52])  # integer coordinates
-    return src, coords.contiguous()
-
-
-def proj_inputs(device, B: int):
-    """depth (S*B, H, W, 1) and affine maps (2B, 12) of a KITTI-like camera
-    and small random poses, with a near region that projects outside the
-    image and a far one; plus 2B source images."""
-    import torch
-
-    from tpuslam_torch.geometry.camera import projection_affine
-
-    g = torch.Generator(device=device).manual_seed(B)
-    src2 = torch.rand((2 * B, H, W, C), generator=g, device=device)
-    depth = 2.0 + 30.0 * torch.rand((S * B, 1, 6, 20), generator=g, device=device)
-    depth = torch.nn.functional.interpolate(depth, size=(H, W), mode="bilinear",
-                                            align_corners=False).permute(0, 2, 3, 1)
-    depth[:, :20, :] = 0.3  # near: leaves the image
-    K = torch.eye(4, device=device).repeat(2 * B, 1, 1)
-    K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2] = 0.58 * W, 1.92 * H, 0.5 * W, 0.5 * H
-    T = torch.eye(4, device=device).repeat(2 * B, 1, 1)
-    T[:, :3, 3] = 0.3 * torch.randn((2 * B, 3), generator=g, device=device)
-    ab = projection_affine(K, torch.linalg.inv(K), T)
-    return src2, depth.contiguous(), ab.contiguous()
 
 
 def err_inputs(device, n: int, B: int, h: int = H, w: int = W, c: int = C):
@@ -362,6 +320,37 @@ def check_proj(torch, wp, src2, depth, ab, tag: str) -> dict:
              f"K5 vs plain on {tag}", err)
     _log_err("K5", tag, depth.shape, err)
     return err
+
+
+def check_warp_edges(torch, wp, dev) -> dict:
+    """The forward warp kernel where its design can go wrong: shapes that no
+    run of columns or 16-byte vector divides (ragged runs, unaligned heads
+    and tails of the output spans), H = 2, W = 2, C = 4 and C = 1; and
+    coordinates at an odd element offset, which the kernel reads as two
+    floats a pixel instead of one float2 (K5's depth, read a float at a time
+    on every path, sits at an odd offset too).  Only the forward launches
+    see the unaligned views: the autograd halves of the checks run on
+    aligned clones.  K1, K2, K4 and K5 at the tolerances of their checks;
+    returns their errors by kernel."""
+    from tpuslam_torch.tools.warp_ab import odd_offset, proj_inputs, warp_inputs
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {"K1": [], "K2": [], "K4": [], "K5": []}
+    for n, shape, odd in ((6, (50, 130, 3), False), (6, (50, 130, 3), True),
+                          (4, (2, 70, 3), False), (3, (37, 2, 3), False),
+                          (2, (40, 70, 4), False), (2, (40, 70, 1), False)):
+        tag = "coords and depth at an odd offset" if odd else "a ragged shape"
+        place = odd_offset if odd else (lambda t: t)
+        src, coords = warp_inputs(dev, n, shape=shape)
+        coords = place(coords)
+        errs["K1"].append(check_k1(torch, wp, src, coords, tag))
+        g = torch.randn(src.shape, generator=gen, device=dev)
+        errs["K2"].append(check_k2(torch, wp, src, coords, g, tag))
+        src2, coords = warp_inputs(dev, 2 * n, 2, shape)
+        errs["K4"].append(check_tall(torch, wp, src2, place(coords), tag))
+        src2, depth, ab = proj_inputs(dev, 1, shape)
+        errs["K5"].append(check_proj(torch, wp, src2, place(depth), ab, tag))
+    return errs
 
 
 def _err_bwd64(torch, preds, target, g):
@@ -774,6 +763,8 @@ def timed(torch, card, name, fn, plain, match, inputs, outputs, flops, err, lib=
 def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
     """Hold every kernel against its plain version on adversarial inputs and
     on the inputs the paths gave it, then time it on the latter."""
+    from tpuslam_torch.tools.warp_ab import proj_inputs, warp_inputs
+
     dev = torch.device("cuda")
     k1a, k1b = cap["main"]["warp_static_fused"], cap["eval"]["warp_static"]
     k4 = cap["fused loss"]["warp_tall_taps"]
@@ -798,6 +789,8 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
           check_proj(torch, wp, *proj_inputs(dev, 1), "adversarial depth"),
           check_proj(torch, wp, *k5[:3], "the fused main path's inputs"),
           check_proj(torch, wp, *k5nt[:3], "the fused eval path's inputs")]
+    edges = check_warp_edges(torch, wp, dev)
+    e1, e4, e5 = e1 + edges["K1"], e4 + edges["K4"], e5 + edges["K5"]
     preds, target, gerr, (dx, dy) = err_inputs(dev, N_MAIN, 3)
     e6 = [check_err(torch, rp, preds, target, gerr, dx, dy, "adversarial preds"),
           check_err(torch, rp, *k7, "the fused main path's inputs"),
@@ -912,6 +905,7 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
           check_k2(torch, wp, *k2p[:3], "the predictor's inputs"),
           check_k2(torch, wp, *k2e[:2], torch.randn(k2e[0].shape, generator=gen, device=dev),
                    "the two-kernel eval path's inputs")]
+    e2 += edges["K2"]
     fwd_flops, bwd_flops = 10 + 9 * C, 14 + 16 * C
     for name, (src, coords, _, trunc) in (("warp_static_k2", k2), ("warp_static_k2_trunc", k2t)):
         out = wp.warp_static(src, coords, False, trunc)

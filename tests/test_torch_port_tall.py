@@ -43,11 +43,11 @@ def _max_bf16_ulps(got, want):
     return float((np.abs(got - want) / ulp).max())
 
 
-def _src2(rng):
+def _src2(rng, B=B, H=H, W=W, C=C):
     return rng.uniform(size=(2 * B, H, W, C)).astype(np.float32)
 
 
-def _coords(rng, shift):
+def _coords(rng, shift, N=N, H=H, W=W):
     gx, gy = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
     out = []
     for k in range(N):
@@ -57,7 +57,7 @@ def _coords(rng, shift):
     return np.stack(out).astype(np.float32)
 
 
-def _proj_inputs(rng, tr_scale=0.05):
+def _proj_inputs(rng, tr_scale=0.05, S=S, B=B, H=H, W=W):
     """depth (S*B, H, W, 1), K, inv_K (2B, 4, 4), T (2B, 4, 4) as numpy."""
     gx, gy = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
     depth = np.stack([4.0 + 1.5 * np.sin(gx / W * (2 + k)) * np.cos(gy / H * (1 + k))
@@ -186,6 +186,46 @@ def test_tall_warps_match_sampler_beyond_window(rng, proj):
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(ggot, gwant, atol=1e-5, rtol=1e-5)
     assert np.all(ggot[:, :, :4, 0] == 0.0) and np.all(ggot[:, 7, :, 1] == 0.0)
+
+
+@pytest.mark.parametrize("proj", [False, True], ids=["K4", "K5"])
+@pytest.mark.parametrize("shape", [(3, 1, 50, 130, 3), (2, 1, 2, 70, 3), (1, 2, 37, 2, 3),
+                                   (2, 1, 40, 70, 4), (2, 1, 40, 70, 1)],
+                         ids=["50x130", "2x70", "37x2", "C4", "C1"])
+def test_tall_warps_match_sampler_at_ragged_shapes(rng, shape, proj):
+    """(S, B, H, W, C) that no run of columns or 16-byte vector of the kernel
+    divides, H = 2, W = 2, C = 4 and C = 1: the port's K4 and K5 routes (their
+    plain versions here, the kernel's oracle on the card at the same shapes)
+    against the XLA sampler on the tiled sources, at `proj_coords_xla` for
+    K5: values within 1e-5, dcoords within 1e-5, d depth and d ab within
+    1e-5 relative."""
+    s, b, h, w, c = shape
+    n = 2 * s * b
+    src2 = _src2(rng, b, h, w, c)
+    g = rng.normal(size=(n, h, w, c)).astype(np.float32)
+    tiled = jnp.asarray(np.asarray(wp.tall_sources(torch.from_numpy(src2), s)))
+    if proj:
+        depth, K, inv_K, T = _proj_inputs(rng, 0.05, s, b, h, w)
+        depth[:, :, :2] = 0.3  # near: projects off the image
+        ab = np.asarray(jax_projection_affine(jnp.asarray(K), jnp.asarray(inv_K),
+                                              jnp.asarray(T)))
+        want, (gd_want, gab_want) = _jax_vjp(
+            lambda d, a: bilinear_sampler(tiled, proj_coords_xla(d, a, s)), (depth, ab), g)
+        got, (gd, gab), _ = _port_vjp(
+            lambda d, a: wp.warp_tall_proj(torch.from_numpy(src2), d, a, s), (depth, ab), g)
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        assert _rel(gd, gd_want) < 1e-5 and _rel(gab, gab_want) < 1e-5
+        return
+    coords = _coords(rng, 4.0, n, h, w)
+    coords[:, :, :2, 0] = -2.0  # outside: zero gradient
+    coords[:, 0, :, 1] = 0.0  # exact top edge
+    coords[:, :, -1, 0] = w - 1.0  # exact right edge
+    coords[:, h // 2] = np.floor(coords[:, h // 2])  # integer coordinates
+    want, (gwant,) = _jax_vjp(lambda c: bilinear_sampler(tiled, c), (coords,), g)
+    got, (ggot,), _ = _port_vjp(lambda c: wp.warp_tall(torch.from_numpy(src2), c, s),
+                                (coords,), g)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(ggot, gwant, atol=1e-5, rtol=1e-5)
 
 
 def test_tall_warps_without_grad_take_no_taps(rng):

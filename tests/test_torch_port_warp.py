@@ -87,6 +87,39 @@ def test_warp_matches_sampler_beyond_window_and_at_edges(rng):
     np.testing.assert_allclose(grad[:, :, 4, 0], 0.5 * edge, atol=1e-5)
 
 
+def _ragged_inputs(rng, n, h, w, c):
+    """Smooth flow with points off the image, exact-edge ties and integer
+    coordinates, at (n, h, w, c)."""
+    src = rng.uniform(size=(n, h, w, c)).astype(np.float32)
+    gx, gy = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    dx = 4.0 * np.sin(gy / h * 3.0) + rng.uniform(-1, 1, (n, h, w))
+    dy = 3.0 * np.cos(gx / w * 2.0) + rng.uniform(-1, 1, (n, h, w))
+    coords = np.stack([gx + dx, gy + dy], axis=-1).astype(np.float32)
+    coords[:, :, :2, 0] = -2.0  # outside: zero gradient
+    coords[:, 0, :, 1] = 0.0  # exact top edge
+    coords[:, :, -1, 0] = w - 1.0  # exact right edge
+    coords[:, h // 2] = np.floor(coords[:, h // 2])  # integer coordinates
+    return src, coords
+
+
+@pytest.mark.parametrize("shape", [(3, 50, 130, 3), (2, 2, 70, 3), (3, 37, 2, 3),
+                                   (2, 40, 70, 4), (2, 40, 70, 1)],
+                         ids=["50x130", "2x70", "37x2", "C4", "C1"])
+def test_warp_matches_sampler_at_ragged_shapes(rng, shape):
+    """Shapes that no run of columns or 16-byte vector of the kernel divides,
+    H = 2, W = 2, C = 4 and C = 1: the port's K1 route (its plain version
+    here, the kernel's oracle on the card at the same shapes) against the
+    XLA sampler, value and dcoords within 1e-5."""
+    src, coords = _ragged_inputs(rng, *shape)
+    out, grad, g = _port(src, coords, False)
+
+    def ref(c):
+        return bilinear_sampler(jnp.asarray(src), c)
+
+    np.testing.assert_allclose(out, np.asarray(ref(jnp.asarray(coords))), atol=1e-5)
+    np.testing.assert_allclose(grad, _jax_grad(ref, coords, g), atol=1e-5, rtol=1e-5)
+
+
 def test_warp_without_grad_takes_no_taps(rng):
     """Outside autograd the wrapper runs K1 without taps, with bf16 storage
     when asked; it checks types and shapes before any launch."""

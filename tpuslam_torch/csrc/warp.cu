@@ -13,8 +13,9 @@
 //   K4  _pallas_warp_tall_impl (_warp_kernel_tall): deduplicated sources
 //   K5  _pallas_warp_tall_proj_impl (_warp_kernel_tall_proj): coordinates
 //       computed in the kernel from depth and a per-image affine camera map
-// It computes their function, not their tiling.  One thread per output pixel
-// (n, y, x) of the (N, H, W, C) stack.
+// It computes their function, not their tiling: the forward kernel on runs of
+// output pixels (n, y, x) of the (N, H, W, C) stack, the backward with one
+// thread per output pixel.
 //
 // Source index map.  Output n reads source image g = (n / (S*B)) * B + n % B
 // of src (the stack order [direction, scale, batch] of train/steps.py, with
@@ -60,18 +61,51 @@
 // 53.1 MB, ~85.5 MB or ~25.5 us; K5 src2 8.8 MB + depth 5.9 MB + 53.1 MB,
 // ~67.8 MB or ~20.2 us; K2 forward (f32 store) 35.4 + 23.6 + 35.4 MB, ~94 MB
 // or ~28 us; K2 backward src, coords and g 94.4 MB read, dcoords 23.6 MB
-// written, ~118 MB or ~35 us.  The gathers of smooth SLAM flow land near the
-// output pixel, and one source image is 1.47 MB, so they hit L1/L2;
-// neighbouring threads read neighbouring coords and write neighbouring
-// outputs.  Vectorised stores and a staged source window are left for later
-// work.
+// written, ~118 MB or ~35 us.  On the eval paths (N = 8, bf16 stores) K1b
+// moves ~25.6 MB (~7.6 us) and K5 without taps ~10.8 MB (~3.2 us).
+//
+// What held the first forward kernel (one thread per pixel of the flat
+// N*H*W index) at 2-3x these bounds, with K1a, K4 and K5 equally fast though
+// their reads differ 4x: the store path and the index math.  Each thread
+// wrote its C values of each plane with scalar stores at a C-element stride,
+// so a warp-wide store covered three times its own bytes and every 32-byte
+// sector was written by three instructions, each leaving it partial; and it
+// found its image, pixel and source image with 64-bit integer divisions,
+// which the card runs as software routines.
+//
+// This forward kernel: a block is a run of kRun * kPix columns of one row
+// (grid: column runs, rows, images), thread t taking columns t, t + kRun, ...,
+// so n, y, x and the source image g come from blockIdx and threadIdx in 32
+// bits, g and K5's 12 affine floats once per block, and offsets within an
+// image are 32-bit (H*W*C < 2^31, checked).  In NHWC the run's outputs are
+// one contiguous span per plane: each thread puts its C values of each plane
+// into shared memory, and after one barrier the block writes each span with
+// 16-byte stores, neighbouring threads on neighbouring addresses, so every
+// sector is written once and whole; only a span's unaligned head and tail
+// (ragged rows, an unaligned base) take scalar stores.  Coordinates are read
+// as one float2 a pixel when their base is 8-byte aligned, else as two
+// floats.  With the stores whole, what remained was latency: each pixel
+// waits on its coordinates (or depth), then on its taps.  So a thread starts
+// the coordinate loads of both its pixels before any tap, and C = 3 (the
+// images of the system) is a compile-time count, so that the 12 tap loads of
+// a pixel go out together instead of channel by channel.  The gathers stay on
+// L1/L2: smooth SLAM flow keeps the four taps near the output pixel, and one
+// source image is 1.47 MB.  Arithmetic and its order are those of the first
+// kernel, so the outputs are bit-identical to it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // warp_grad_kernel
+// The forward kernel: threads of a block, and output pixels a thread, so a
+// block covers kRun * kPix = 128 columns of one row (the sweep in PERF.md
+// chose them); the staging of its output planes may take up to 48 KB.
+constexpr int kRun = 64;
+constexpr int kPix = 2;
+constexpr int kCols = kRun * kPix;
+constexpr int kMaxStage = 48 * 1024;
 
 unsigned blocks_for(int64_t n_pix) {
   return (unsigned)((n_pix + kThreads - 1) / kThreads);
@@ -121,53 +155,129 @@ __device__ __forceinline__ float live(float v, float hi) {
   return (v == 0.0f || v == hi) ? 0.5f : 0.0f;
 }
 
-template <typename T, bool TAPS, bool PROJ, bool TRUNC>
-__global__ void warp_kernel(const float* __restrict__ src,
-                            const float* __restrict__ coords,
-                            const float* __restrict__ depth,
-                            const float* __restrict__ ab,
-                            T* __restrict__ out, T* __restrict__ dx,
-                            T* __restrict__ dy, int64_t n_pix, int H, int W,
-                            int C, int S, int B) {
-  const int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (p >= n_pix) return;
-  const int64_t hw = (int64_t)H * W;
-  const int64_t n = p / hw;
-  const int64_t pix = p - n * hw;
-  const int64_t sb = (int64_t)S * B;
-  const int64_t g = (n / sb) * B + n % B;
+// Shared memory that stages one output plane of a run: its run * C values of
+// elem bytes, shifted by up to 15 bytes to the span's address modulo 16.
+__host__ __device__ constexpr int64_t stage_bytes(int run, int C, int elem) {
+  return ((int64_t)run * C * elem + 15) / 16 * 16 + 16;
+}
 
-  float xr, yr;
-  if (PROJ) {
-    const float u = (float)(pix % W);
-    const float v = (float)(pix / W);
-    const float* a = ab + g * 12;
-    const float d = depth[(n % sb) * hw + pix];
-    const float cx = __fadd_rn(__fmul_rn(d, affine_row(a, u, v)), a[9]);
-    const float cy = __fadd_rn(__fmul_rn(d, affine_row(a + 3, u, v)), a[10]);
-    const float cz = __fadd_rn(__fmul_rn(d, affine_row(a + 6, u, v)), a[11]);
-    const float z = fmaxf(cz, 1e-3f);
-    xr = __fdiv_rn(cx, z);
-    yr = __fdiv_rn(cy, z);
-  } else {
-    xr = coords[2 * p];
-    yr = coords[2 * p + 1];
-  }
+// Where the values of the span dst are staged in `plane` (16-byte aligned):
+// at the same address modulo 16 as in dst.
+template <typename T>
+__device__ __forceinline__ T* staged(unsigned char* plane, const T* dst) {
+  return reinterpret_cast<T*>(plane + (reinterpret_cast<uintptr_t>(dst) & 15));
+}
 
-  float wx, wy;
-  const float* top = src + (g * hw + bilinear_corner(xr, yr, H, W, &wx, &wy)) * C;
-  const float* bot = top + (int64_t)W * C;
-  T* o = out + p * C;
-  for (int c = 0; c < C; ++c) {
-    const float a0 = tap<TRUNC>(top + c), a1 = tap<TRUNC>(top + C + c);
-    const float b0 = tap<TRUNC>(bot + c), b1 = tap<TRUNC>(bot + C + c);
-    const float t = a0 * (1.0f - wx) + a1 * wx;
-    const float b = b0 * (1.0f - wx) + b1 * wx;
-    o[c] = store_as<T>(t * (1.0f - wy) + b * wy);
-    if (TAPS) {
-      dx[p * C + c] = store_as<T>((a1 - a0) * (1.0f - wy) + (b1 - b0) * wy);
-      dy[p * C + c] = store_as<T>((b0 - a0) * (1.0f - wx) + (b1 - a1) * wx);
+// Block-wide copy of the n staged values s to dst: 16-byte stores for the
+// aligned body, neighbouring threads on neighbouring addresses, and scalar
+// stores for the head before it and the tail after it.
+template <typename T>
+__device__ __forceinline__ void write_span(T* __restrict__ dst, const T* s, int n) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  const int mis = (int)((reinterpret_cast<uintptr_t>(dst) & 15) / sizeof(T));
+  const int head = min(n, (kVec - mis) % kVec);
+  const int nvec = (n - head) / kVec;
+  const int tail = head + nvec * kVec;
+  const int t = threadIdx.x;
+  if (t < head) dst[t] = s[t];
+  uint4* vd = reinterpret_cast<uint4*>(dst + head);
+  const uint4* vs = reinterpret_cast<const uint4*>(s + head);
+  for (int i = t; i < nvec; i += blockDim.x) vd[i] = vs[i];
+  if (tail + t < n) dst[tail + t] = s[tail + t];
+}
+
+// Block (run of kCols columns, row y, image n) of the forward warp: thread
+// t takes columns t, t + kRun, ...  CN is the channel
+// count where it is known at compile time (3, the images of the system),
+// else 0.  coords_vec: coords is 8-byte aligned (one float2 a pixel).
+template <typename T, bool TAPS, bool PROJ, bool TRUNC, int CN>
+__global__ void __launch_bounds__(kRun)
+    warp_kernel(const float* __restrict__ src, const float* __restrict__ coords,
+                const float* __restrict__ depth, const float* __restrict__ ab,
+                T* __restrict__ out, T* __restrict__ dx, T* __restrict__ dy,
+                int H, int W, int C_, int S, int B, bool coords_vec) {
+  extern __shared__ uint4 stage[];
+  __shared__ float affine[12];
+  const int C = CN ? CN : C_;
+  const int n = blockIdx.z, y = blockIdx.y;
+  const int x0 = blockIdx.x * kCols;
+  const int run = min(kCols, W - x0);
+  const int sb = S * B;
+  const int g = (n / sb) * B + n % B;
+  const int64_t row = ((int64_t)n * H + y) * W + x0;
+  const int plane = (int)stage_bytes(kCols, C, (int)sizeof(T));
+  unsigned char* base = reinterpret_cast<unsigned char*>(stage);
+  T* const so = staged(base, out + row * C);
+  T* const sx = TAPS ? staged(base + plane, dx + row * C) : nullptr;
+  T* const sy = TAPS ? staged(base + 2 * plane, dy + row * C) : nullptr;
+
+  // the coordinates (or depths) of all of the thread's pixels are loaded
+  // before any tap
+  float xr[kPix], yr[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const int col = threadIdx.x + j * kRun;
+    if (x0 + col < W) {
+      if (PROJ) {
+        xr[j] = depth[((int64_t)(n % sb) * H + y) * W + x0 + col];
+      } else if (coords_vec) {
+        const float2 c = reinterpret_cast<const float2*>(coords)[row + col];
+        xr[j] = c.x;
+        yr[j] = c.y;
+      } else {
+        xr[j] = coords[2 * (row + col)];
+        yr[j] = coords[2 * (row + col) + 1];
+      }
     }
+  }
+  if (PROJ) {
+    if (threadIdx.x < 12) affine[threadIdx.x] = ab[g * 12 + threadIdx.x];
+    __syncthreads();
+    const float* a = affine;
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) {
+      const int x = x0 + threadIdx.x + j * kRun;
+      if (x < W) {
+        const float u = (float)x;
+        const float v = (float)y;
+        const float d = xr[j];
+        const float cx = __fadd_rn(__fmul_rn(d, affine_row(a, u, v)), a[9]);
+        const float cy = __fadd_rn(__fmul_rn(d, affine_row(a + 3, u, v)), a[10]);
+        const float cz = __fadd_rn(__fmul_rn(d, affine_row(a + 6, u, v)), a[11]);
+        const float z = fmaxf(cz, 1e-3f);
+        xr[j] = __fdiv_rn(cx, z);
+        yr[j] = __fdiv_rn(cy, z);
+      }
+    }
+  }
+  const float* img = src + (int64_t)g * H * W * C;
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const int col = threadIdx.x + j * kRun;
+    if (x0 + col < W) {
+      float wx, wy;
+      const float* top = img + (int)bilinear_corner(xr[j], yr[j], H, W, &wx, &wy) * C;
+      const float* bot = top + W * C;
+      const int k = col * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float a0 = tap<TRUNC>(top + c), a1 = tap<TRUNC>(top + C + c);
+        const float b0 = tap<TRUNC>(bot + c), b1 = tap<TRUNC>(bot + C + c);
+        const float t = a0 * (1.0f - wx) + a1 * wx;
+        const float b = b0 * (1.0f - wx) + b1 * wx;
+        so[k + c] = store_as<T>(t * (1.0f - wy) + b * wy);
+        if (TAPS) {
+          sx[k + c] = store_as<T>((a1 - a0) * (1.0f - wy) + (b1 - b0) * wy);
+          sy[k + c] = store_as<T>((b0 - a0) * (1.0f - wx) + (b1 - a1) * wx);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  write_span(out + row * C, so, run * C);
+  if (TAPS) {
+    write_span(dx + row * C, sx, run * C);
+    write_span(dy + row * C, sy, run * C);
   }
 }
 
@@ -199,16 +309,27 @@ __global__ void warp_grad_kernel(const float* __restrict__ src,
   dcoords[2 * p + 1] = ddy * live(yr, (float)(H - 1));
 }
 
-using Launch = void (*)(const float*, const float*, const float*, const float*,
-                        void*, void*, void*, int64_t, int, int, int, int, int,
-                        cudaStream_t);
+struct WarpArgs {
+  const float *src, *coords, *depth, *ab;
+  void *out, *dx, *dy;
+  int N, H, W, C, S, B;
+  bool coords_vec;
+};
+
+using Launch = void (*)(const WarpArgs&, int, cudaStream_t);
 
 template <typename T, bool TAPS, bool PROJ, bool TRUNC = false>
-void launch(const float* src, const float* coords, const float* depth,
-            const float* ab, void* out, void* dx, void* dy, int64_t n_pix,
-            int H, int W, int C, int S, int B, cudaStream_t stream) {
-  warp_kernel<T, TAPS, PROJ, TRUNC><<<blocks_for(n_pix), kThreads, 0, stream>>>(
-      src, coords, depth, ab, (T*)out, (T*)dx, (T*)dy, n_pix, H, W, C, S, B);
+void launch(const WarpArgs& a, int smem, cudaStream_t stream) {
+  const dim3 grid((unsigned)((a.W + kCols - 1) / kCols), (unsigned)a.H, (unsigned)a.N);
+  if (a.C == 3) {
+    warp_kernel<T, TAPS, PROJ, TRUNC, 3><<<grid, kRun, smem, stream>>>(
+        a.src, a.coords, a.depth, a.ab, (T*)a.out, (T*)a.dx, (T*)a.dy, a.H, a.W,
+        a.C, a.S, a.B, a.coords_vec);
+  } else {
+    warp_kernel<T, TAPS, PROJ, TRUNC, 0><<<grid, kRun, smem, stream>>>(
+        a.src, a.coords, a.depth, a.ab, (T*)a.out, (T*)a.dx, (T*)a.dy, a.H, a.W,
+        a.C, a.S, a.B, a.coords_vec);
+  }
 }
 
 template <typename T, bool TAPS>
@@ -228,23 +349,33 @@ Launch pick_taps(bool taps, bool proj) {
 // (N, H, W, C) f32 or bf16; all contiguous.  Output n reads source
 // (n / (S*B)) * B + n % B.  dx and dy are written only when with_taps is set;
 // trunc truncates the taps to bf16; it is taken only without taps, without
-// projection and with f32 stores (K2), else cudaErrorInvalidValue is
-// returned and nothing runs.  Returns cudaGetLastError() after the launch.
+// projection and with f32 stores (K2).  N and H are at most 65535,
+// H * W * C < 2^31, and a block's staging of its output planes is at most
+// 48 KB: C <= 31 with taps and f32 stores, 63 with taps and bf16, 95 without
+// taps and f32.  Otherwise cudaErrorInvalidValue is returned and nothing
+// runs.  Returns cudaGetLastError() after the launch.
 extern "C" int tpuslam_warp(const void* src, const void* coords,
                             const void* depth, const void* ab, void* out,
                             void* dx, void* dy, int64_t n, int H, int W, int C,
                             int S, int B, int with_taps, int bf16_out,
                             int trunc, void* stream) {
-  const int64_t n_pix = n * (int64_t)H * W;
   const bool proj = depth != nullptr;
   if (trunc && (with_taps || bf16_out || proj)) return (int)cudaErrorInvalidValue;
-  if (n_pix > 0) {
+  if (n > 65535 || H > 65535 || (int64_t)H * W * C >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0 && H > 0 && W > 0) {
+    const int planes = with_taps ? 3 : 1;
+    const int elem = bf16_out ? 2 : 4;
+    const int64_t smem = planes * stage_bytes(kCols, C, elem);
+    if (smem > kMaxStage) return (int)cudaErrorInvalidValue;
+    const WarpArgs args{(const float*)src, (const float*)coords, (const float*)depth,
+                        (const float*)ab, out, with_taps ? dx : nullptr,
+                        with_taps ? dy : nullptr, (int)n, H, W, C, S, B,
+                        (reinterpret_cast<uintptr_t>(coords) & 7) == 0};
     const Launch fn = trunc      ? launch<float, false, false, true>
                       : bf16_out ? pick_taps<__nv_bfloat16>(with_taps, proj)
                                  : pick_taps<float>(with_taps, proj);
-    fn((const float*)src, (const float*)coords, (const float*)depth,
-       (const float*)ab, out, with_taps ? dx : nullptr,
-       with_taps ? dy : nullptr, n_pix, H, W, C, S, B, (cudaStream_t)stream);
+    fn(args, (int)smem, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

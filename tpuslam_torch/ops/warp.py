@@ -65,17 +65,21 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on `lib`."""
+    lib.tpuslam_warp.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.tpuslam_warp_grad.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpuslam_warp.restype = lib.tpuslam_warp_grad.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load the warp kernel library."""
     global _configured
     if _configured is None:
-        lib = build.load_library("warp")
-        lib.tpuslam_warp.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.tpuslam_warp_grad.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.tpuslam_warp.restype = lib.tpuslam_warp_grad.restype = ctypes.c_int
-        _configured = lib
+        _configured = declare(build.load_library("warp"))
     return _configured
 
 
@@ -112,8 +116,11 @@ def _check_proj(src2: torch.Tensor, depth: torch.Tensor, ab: torch.Tensor, S: in
 def _launch(src, coords, depth, ab, N: int, S: int, B: int, with_taps: bool, bf16_out: bool,
             trunc: bool = False):
     _check_contiguous(src, coords, depth, ab)
-    lib = load_library()
     _, H, W, C = src.shape
+    if N > 65535 or H > 65535 or H * W * C >= 2**31:
+        raise ValueError(f"the warp kernel takes N, H <= 65535 and H * W * C < 2^31, "
+                         f"got N = {N} and src {tuple(src.shape)}")
+    lib = load_library()
     dtype = torch.bfloat16 if bf16_out else torch.float32
     outs = [torch.empty((N, H, W, C), dtype=dtype, device=src.device)
             for _ in range(3 if with_taps else 1)]
@@ -126,7 +133,8 @@ def _launch(src, coords, depth, ab, N: int, S: int, B: int, with_taps: bool, bf1
                                N, H, W, C, S, B, int(with_taps), int(bf16_out), int(trunc),
                                stream)
     if err != 0:
-        raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"warp kernel launch failed: CUDA error {err} (1 is the refusal of "
+                           f"too many channels for a block's staging: tpuslam_warp, csrc/warp.cu)")
     return outs
 
 

@@ -18,10 +18,8 @@ file as well.  Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -30,30 +28,15 @@ import torch
 
 from tpuslam_torch.ops import build
 from tpuslam_torch.ops import reproj as rp
+from tpuslam_torch.tools.ab_common import card_line, cold_ms, compile_source, flush_buffer
 
 N, B, H, W, C = 24, 3, 192, 640, 3
 
 
-def compile_source(source: Path, out_dir: Path) -> tuple:
-    """Build `source` like `ops/build.py` does, with -Xptxas -v; return the
-    loaded library and one line per kernel: registers, shared memory, spills."""
-    so = out_dir / f"lib_{source.stem}_{abs(hash(str(source)))}.so"
-    _, flags = build.SOURCES["reproj"]
-    proc = subprocess.run(build.nvcc_command(source, so, [*flags, "-Xptxas", "-v"]),
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-    usage, kernel, spill = [], "?", ""
-    for line in proc.stderr.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"(err_\w+?_kernel)I(\w+?)E", line)
-            kernel = f"{m.group(1)}<{m.group(2)}>" if m else line.strip()
-        elif "spill" in line:
-            spill = line.split(":", 1)[-1].strip()
-        elif "registers" in line:
-            usage.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spill}")
-    lib = rp.declare(ctypes.CDLL(str(so)))
-    return lib, usage
+def label(mangled: str) -> str:
+    """`err_bwd_kernel<Lb1>` and the like, from a kernel's mangled name."""
+    m = re.search(r"(err_\w+?_kernel)I(\w+?)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
 
 
 def make_inputs(dev):
@@ -75,18 +58,6 @@ def calls(preds, target, gerr, dx, dy):
             "K7/K8": lambda: rp.err_bwd_coords(preds, target, gerr, dx, dy)}
 
 
-def cold_ms(fn, flush, iters: int = 20, warm: int = 5) -> float:
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(warm + iters)]
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events[warm:]) / iters
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old", type=Path)
@@ -96,15 +67,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("reproj_ab: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda")
     result = {"card": card, "old": str(args.old), "new": str(args.new)}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {}
         for tag, source in (("old", args.old), ("new", args.new)):
-            libs[tag], usage = compile_source(source, Path(tmp))
+            libs[tag], usage = compile_source("reproj", source, Path(tmp), rp.declare,
+                                               label=label)
             result[f"{tag}_usage"] = usage
             for line in usage:
                 print(f"[{tag}] {line}")
@@ -119,7 +89,7 @@ def main(argv=None) -> int:
                      for k, a, b in zip(("K6", "K6'", "K7/K8"), outs["old"], outs["new"])}
             result[f"bit_equal_{str(dtype)[6:]}"] = equal
             print(f"new vs old, {dtype}: bit-equal {equal}")
-        flush = torch.empty(2 ** 26, dtype=torch.float32, device=dev)
+        flush = flush_buffer(dev)
         p, tx, ty = preds.to(torch.bfloat16), dx.to(torch.bfloat16), dy.to(torch.bfloat16)
         times = {}
         for tag in ("old", "new", "new", "old"):
