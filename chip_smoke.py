@@ -8,7 +8,8 @@ Phases, each printing lines tagged with its name and raising on failure
 
 1. device: the card's name and power limit;
 2. build: both kernel libraries (tpuslam_torch/csrc/warp.cu, reproj.cu),
-   one nvcc each, started together;
+   one nvcc each, started together, then the C++ pose-graph solver
+   (native/posegraph.cc, g++);
 3. main: `Slam.step` with online adaptation on the synthetic world at
    192 x 640, ResNet-18 depth and pose, batch 3, K = 5, the shipped
    `pallas_*` defaults: K1 runs with taps on N = 2*S*B = 24 images;
@@ -38,7 +39,16 @@ Phases, each printing lines tagged with its name and raising on failure
     without taps and K6 once per frame each;
 13. fused loss: four adapted frames with `pallas_tall` + `pallas_fused_loss`:
     5 launches per frame each of K4 with taps, K6 and K6';
-14. kernels: every kernel (K1 with and without taps, K2's forward and
+14. lc main: `Slam.run` over 40 frames of the synthetic loop at the
+    operating point of `adapt_kitti.yaml`: adaptation on the K1 path, loop
+    closure on the depth-encoder embedding, `pipeline_depth: 3`, a prefetch
+    of 3 frames (`id_threshold` and `detection_threshold` lowered so that a
+    loop edge fires on random weights): 5 K1a launches per frame and no
+    other kernel, at least one loop edge solved by the C++ solver; the graph
+    as it stood before that solve, and a 1,000-vertex chain, solved by the
+    float64 LM on the card and on the CPU and by the C++ solver, which must
+    agree;
+15. kernels: every kernel (K1 with and without taps, K2's forward and
     backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it (the error-map
@@ -52,7 +62,7 @@ Phases, each printing lines tagged with its name and raising on failure
     gathers, torch's grid_sample forward and backward (K3 and K3' are K2
     with exact taps, `warp_dynamic`: no path calls them, and their rows
     carry K2's numbers);
-15. reference: one adaptation step on the card and on the CPU at a small
+16. reference: one adaptation step on the card and on the CPU at a small
     size, with the K1 path, the fused stack, the two-kernel path and the
     packed variant (and the K1 path again at their size), which must agree.
 
@@ -618,6 +628,211 @@ def phase_predictor(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> 
     return launches
 
 
+LC_FRAMES = 40  # frames of the "lc main" path, the synthetic loop's length
+
+
+def chain_graph(n: int, seed: int, loops):
+    """A noisy chain of n poses 0.5 m apart with loop edges of information
+    2 I, built as `tests/test_posegraph.py::test_solver_scaling_1k_vertices`
+    builds it; returns (graph, ground-truth poses)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from tpuslam_torch.posegraph.graph import PoseGraph
+
+    def se3(rotvec, t):
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_rotvec(rotvec).as_matrix()
+        T[:3, 3] = t
+        return T
+
+    rng = np.random.default_rng(seed)
+    gt = [np.eye(4)]
+    for _ in range(n - 1):
+        gt.append(gt[-1] @ se3(rng.normal(scale=0.03, size=3), [0, 0, 0.5]))
+    g = PoseGraph()
+    est = gt[0]
+    g.add_vertex(0, est, fixed=True)
+    for i in range(1, n):
+        Z = np.linalg.inv(gt[i - 1]) @ gt[i] @ se3(rng.normal(scale=0.05 * 0.05, size=3),
+                                                    rng.normal(scale=0.05, size=3))
+        est = est @ Z
+        g.add_vertex(i, est)
+        g.add_edge((i - 1, i), Z)
+    for i, j in loops:
+        g.add_edge((i, j), np.linalg.inv(gt[i]) @ gt[j], information=np.eye(6) * 2.0,
+                   is_loop_closure=True)
+    return g, gt
+
+
+def solve_three_ways(graph, gt, tag: str, card: str, turns: int) -> dict:
+    """Copies of `graph` solved by the float64 LM on the card and on the CPU
+    and by the C++ solver (cap 10000, as `Slam` asks), `turns` times each;
+    logs each backend's error, ATE against `gt` and wall times (host clock
+    around the solve, which ends in a host read).  Returns backend ->
+    (poses, error)."""
+    import copy
+
+    import numpy as np
+
+    from tpuslam_torch.eval.trajectory import compute_ate
+
+    out = {}
+    ate0 = compute_ate(graph.get_all_poses(), gt)
+    for name, backend, device in (("torch card", "torch", "cuda"), ("torch CPU", "torch", "cpu"),
+                                  ("native", "native", "cpu")):
+        seconds = []
+        for _ in range(turns):
+            g = copy.deepcopy(graph)
+            t0 = time.perf_counter()
+            err = g.optimize(max_iterations=10000, backend=backend, device=device)
+            seconds.append(time.perf_counter() - t0)
+            if g.last_backend != backend:
+                raise AssertionError(f"{tag}: asked for {backend}, solved with {g.last_backend}")
+        poses = g.get_all_poses()
+        out[name] = (np.stack(poses), err)
+        log("lc main", f"{tag}, {name}: error {err:.9g}, ATE {ate0:.4f} -> "
+            f"{compute_ate(poses, gt):.4f} m, solve "
+            + " / ".join(f"{1e3 * t:.1f}" for t in seconds) + f" ms (turns) [{card}]")
+    return out
+
+
+def check_solves(solves: dict, tag: str, strict: bool) -> None:
+    """Each pair of solves agrees within `test_native_solver_matches_jax`'s
+    tolerances: error no more than 1.5x the other's + 1e-6, ATE between
+    them < 0.15 m.  With `strict` also: the card's and the CPU's torch
+    solves (float64, another order of summation) within 1e-9 relative in
+    error and 1e-6 in poses, and torch against the C++ solver within 1e-6
+    relative in error."""
+    import itertools
+
+    import numpy as np
+
+    err = {}
+    for (a, (pa, ea)), (b, (pb, eb)) in itertools.combinations(solves.items(), 2):
+        key = f"{a} / {b}".replace(" ", "_")
+        err[f"{key}_err_rel"] = abs(ea - eb) / eb
+        err[f"{key}_ate"] = float(np.sqrt(np.mean(np.sum((pa - pb)[:, :3, 3] ** 2, -1))))
+        err[f"{key}_poses"] = float(np.abs(pa - pb).max())
+        ok = ea <= 1.5 * eb + 1e-6 and eb <= 1.5 * ea + 1e-6 and err[f"{key}_ate"] < 0.15
+        _require(ok, f"lc main: the {a} and {b} solves of {tag} disagree", err)
+    if strict:
+        card_cpu, card_native = "torch_card_/_torch_CPU", "torch_card_/_native"
+        _require(err[f"{card_cpu}_err_rel"] <= 1e-9 and err[f"{card_cpu}_poses"] <= 1e-6
+                 and err[f"{card_native}_err_rel"] <= 1e-6,
+                 f"lc main: the solves of {tag} disagree", err)
+    log("lc main", f"{tag}: solves agree: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
+
+
+def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms) -> None:
+    """`Slam.run` over the synthetic loop at the operating point of
+    `adapt_kitti.yaml`: adaptation (batch 3, K = 5, the shipped `pallas_*`
+    defaults, bf16 networks), loop closure on the depth-encoder embedding
+    (`keyframe_frequency: 5`, `lc_distance_poses: 150`), `pipeline_depth: 3`
+    and a prefetch of 3 frames.  Reduced: 40 frames, random weights,
+    `id_threshold` 250 -> 20 and `detection_threshold` 0.99 -> 0.5 (every
+    similarity of random weights lies above it), so that a loop edge fires.
+    Checks the losses, one vertex per adapted frame after the flush, at
+    least one loop edge solved by the C++ solver, 5 K1a launches per
+    adapted frame and no other kernel, and an empty retire queue; then
+    solves the graph as it stood before its first solve, and a 1,000-vertex
+    chain, on the card, on the CPU and in C++, and holds them together."""
+    import copy
+    import math
+
+    import numpy as np
+
+    from tpuslam_torch.eval.trajectory import compute_ate
+    from tpuslam_torch.slam import Slam
+
+    cfg = smoke_config(log_dir, adaptation=True)
+    cfg.dataset.num_frames, cfg.dataset.trajectory = LC_FRAMES, "loop"
+    cfg.slam.do_loop_closures, cfg.slam.pipeline_depth = True, 3
+    cfg.slam.keyframe_frequency, cfg.slam.lc_distance_poses = 5, 150
+    cfg.loop_closure.embedder = "depth_encoder"
+    cfg.loop_closure.id_threshold, cfg.loop_closure.detection_threshold = 20, 0.5
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    slam = Slam(cfg, device="cuda")
+
+    searches, snapshots, runs = [], [], []
+    search = slam.loop_closure_detection.search
+
+    def logged_search(frame_id):
+        det = slam.loop_closure_detection
+        sims, ids = det.index.search(det.index.reconstruct(frame_id)[None],
+                                     min(100, det.index.ntotal))
+        ok = (ids[0] >= 0) & (np.abs(ids[0] - frame_id) > det.id_threshold)
+        searches.append((frame_id, ids[0][ok], sims[0][ok]))
+        return search(frame_id)
+
+    optimize = slam.pose_graph.optimize
+
+    def kept_optimize(**kwargs):
+        if not snapshots:  # the graph as it stands before its first solve
+            snapshot = copy.deepcopy(slam.pose_graph)
+            del vars(snapshot)["optimize"]  # this wrapper, copied with the instance
+            snapshots.append(snapshot)
+        t0 = time.perf_counter()
+        err = optimize(**kwargs)
+        runs.append((kwargs, slam.pose_graph.last_backend, err, time.perf_counter() - t0))
+        return err
+
+    slam.loop_closure_detection.search = logged_search
+    slam.pose_graph.optimize = kept_optimize
+    reset_launches(wp, rp)
+    t0 = time.perf_counter()
+    with PathGuard(wp, rp, captured):
+        slam.run(max_steps=LC_FRAMES, progress=False, prefetch_depth=3)
+    run_s = time.perf_counter() - t0
+    launches = read_launches(wp, rp)
+    adapted = len(slam.step_times)
+    if slam._retire_queue or adapted != LC_FRAMES:
+        raise AssertionError(f"lc main: {len(slam._retire_queue)} frames left in the retire "
+                             f"queue, {adapted} of {LC_FRAMES} frames adapted")
+    losses = slam.depth_loss + slam.velocity_loss
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"lc main: non-finite losses {losses}")
+    if slam.pose_graph.vertex_ids != list(range(adapted + 1)):
+        raise AssertionError(f"lc main: pose graph vertices {slam.pose_graph.vertex_ids}")
+    expect_launches("lc main", launches, {"warp_static_fused": 5 * adapted})
+    if slam.pose_graph.num_loop_closures < 1 or not runs:
+        raise AssertionError(f"lc main: {slam.pose_graph.num_loop_closures} loop edges, "
+                             f"{len(runs)} solves; searches {searches}")
+    before = snapshots[0]
+    if any(backend != "native" or kw.get("backend") != "auto" for kw, backend, _, _ in runs):
+        raise AssertionError(f"lc main: solves {runs}")
+    ms = 1e3 * float(np.mean(slam.step_times[2:]))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    for frame_id, ids, sims in searches:
+        log("lc main", f"search at frame {frame_id}: candidates "
+            + (", ".join(f"{i} sim {s:.6f}" for i, s in zip(ids, sims)) or "none")
+            + " (threshold 0.5, id_threshold 20)")
+    for d in slam.lc_edge_diagnostics:
+        log("lc main", f"loop edge {d['step']} -> {d['lc_id']}: sim {d['sim']:.6f}, predicted "
+            f"distance {d['pred_dist']:.3f} m, ground truth {d['gt_dist']:.3f} m")
+    gt = slam.gt_pose_graph.get_all_poses()
+    ate_before = compute_ate(before.get_all_poses(), gt[:len(before)])
+    ate_line = [l for l in slam.final_report().splitlines() if "Abs traj RMSE" in l]
+    log("lc main", f"{adapted} frames adapted in Slam.run, loss {slam.depth_loss[-1]:.5f} "
+        f"(depth), launches { {k: v for k, v in launches.items() if v} }, "
+        f"{slam.pose_graph.num_loop_closures} loop edge(s), solves "
+        + ", ".join(f"{b} {1e3 * t:.1f} ms (error {e:.6g})" for _, b, e, t in runs)
+        + f"; ATE of the {len(before)} vertices before the first solve {ate_before:.4f} m; "
+        f"final report {ate_line}; steady {ms:.2f} ms/frame = {1e3 / ms:.2f} frames/s "
+        f"(frames 3-{adapted}; the K1 path's Slam.step loop: {k1_ms:.2f} ms/frame), run "
+        f"{run_s:.2f} s; peak memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB held "
+        f"before the path [{card}]")
+
+    check_solves(solve_three_ways(before, gt[:len(before)], f"the path's graph before its "
+                                  f"first solve ({len(before)} vertices, "
+                                  f"{before.num_loop_closures} loop edge(s))", card, 2),
+                 "the path's graph", strict=True)
+    chain, chain_gt = chain_graph(1000, 42, [(0, 999), (100, 900), (250, 750)])
+    check_solves(solve_three_ways(chain, chain_gt, "a 1,000-vertex chain (3 loop edges)", card, 1),
+                 "the 1,000-vertex chain", strict=False)
+
+
 def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
     """Where a frame's time goes: host time making the synthetic frame,
     the rest of `Slam.step`, and the device's busy time (union of the
@@ -960,6 +1175,7 @@ def main() -> int:
     from tpuslam_torch.ops import build
     from tpuslam_torch.ops import reproj as rp
     from tpuslam_torch.ops import warp as wp
+    from tpuslam_torch.posegraph import native as pg_native
 
     card = card_line()
     log("device", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 is "
@@ -971,6 +1187,10 @@ def main() -> int:
     rp.load_library()
     log("build", f"warp.cu and reproj.cu built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc, each started together: {build.build_seconds or 'cached'})")
+    t0 = time.perf_counter()
+    pg_native.library()
+    log("build", f"native/posegraph.cc built with g++ and loaded in "
+        f"{time.perf_counter() - t0:.2f} s ({pg_native.library_path().name})")
 
     cap = {}  # path -> kernel wrapper -> its last inputs
     k1_taps = {"warp_static_fused": 5}
@@ -1020,6 +1240,7 @@ def main() -> int:
             torch, wp, rp, "fused loss", log_dir, cap.setdefault("fused loss", {}), card, 4,
             fused_loss, pallas_tall=True, pallas_fused_loss=True)
         del slam
+        phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card, k1_ms)
         results = phase_kernels(torch, wp, rp, cap, card)
         cap.clear()
         phase_reference(torch, log_dir, "K1 path")

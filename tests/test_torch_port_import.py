@@ -35,7 +35,9 @@ def test_port_sources_import_no_jax_and_no_reference_package():
     assert len(files) > 20
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"tpuslam_torch/ops/warp.py", "tpuslam_torch/ops/reproj.py",
-            "tpuslam_torch/ops/build.py"} <= names
+            "tpuslam_torch/ops/build.py", "tpuslam_torch/posegraph/lm.py",
+            "tpuslam_torch/posegraph/native.py",
+            "tpuslam_torch/loopclosure/detection.py"} <= names
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -53,20 +55,24 @@ from tpuslam_torch.slam import Slam
 cfg = Config()
 cfg.dataset = DatasetConfig(dataset="Synthetic", height=64, width=192, num_frames=5)
 cfg.depth_pose = DepthPoseConfig(batch_size=3, log_path=sys.argv[1])
-cfg.slam = SlamConfig(adaptation=True, adaptation_epochs=1, do_loop_closures=False,
-                      plot_frequency=0)
+cfg.slam = SlamConfig(adaptation=True, adaptation_epochs=1, do_loop_closures=True,
+                      pipeline_depth=1, plot_frequency=0)
 slam = Slam(cfg, device="cpu")
-losses = [slam.step() for _ in range(3)]
-assert all(l["depth_loss"] == l["depth_loss"] for l in losses), losses
+slam.run(max_steps=3, progress=False)
+assert all(l == l for l in slam.depth_loss), slam.depth_loss
 assert slam.pose_graph.vertex_ids == [0, 1, 2, 3], slam.pose_graph.vertex_ids
+slam.pose_graph.optimize(backend="auto", device="cpu")
+slam.pose_graph.optimize(backend="torch", device="cpu")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpuslam"))
 print("LEAKED", leaked)
 """
 
 
 def test_cpu_slam_run_leaves_jax_unimported(tmp_path):
-    """A fresh interpreter imports the port and runs three frames of
-    adaptation on the CPU without loading jax or the JAX package."""
+    """A fresh interpreter imports the port, runs three frames of
+    adaptation with loop closure and the pipelined retire through
+    `Slam.run` on the CPU, and solves the pose graph with both backends,
+    without loading jax or the JAX package."""
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     proc = subprocess.run([sys.executable, "-c", _RUN, str(tmp_path)], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=300)
@@ -129,8 +135,10 @@ def test_entry_points_turn_tf32_off_and_restore_it():
 
 def test_unported_options_are_refused(tmp_path):
     """Options whose modules are not ported yet raise NotImplementedError
-    instead of being ignored; every `pallas_*` flag is accepted and mapped,
-    the two-kernel variants (K2) and the fused stack (K4-K8) alike."""
+    instead of being ignored (expert, async, the MobileNet embedder); loop
+    closure and `pipeline_depth > 0` are ported and construct; every
+    `pallas_*` flag is accepted and mapped, the two-kernel variants (K2)
+    and the fused stack (K4-K8) alike."""
     from tpuslam_torch.config import Config
     from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig, SlamConfig
     from tpuslam_torch.predictor import DepthPosePrediction
@@ -157,5 +165,17 @@ def test_unported_options_are_refused(tmp_path):
         cfg = Config()
         cfg.depth_pose = DepthPoseConfig(log_path=str(tmp_path))
         cfg.slam = SlamConfig(**{"do_loop_closures": False, "plot_frequency": 0, **slam_cfg})
+        if "do_loop_closures" in slam_cfg or "pipeline_depth" in slam_cfg:
+            # ported: loop closure and the pipelined retire construct
+            slam = Slam(cfg, device="cpu")
+            assert (slam.do_loop_closures, slam.pipeline_depth) == (
+                slam_cfg.get("do_loop_closures", False), slam_cfg.get("pipeline_depth", 0))
+            continue
         with pytest.raises(NotImplementedError):
             Slam(cfg, device="cpu")
+    cfg = Config()
+    cfg.depth_pose = DepthPoseConfig(log_path=str(tmp_path))
+    cfg.slam = SlamConfig(plot_frequency=0)
+    cfg.loop_closure.embedder = "mobilenet"
+    with pytest.raises(NotImplementedError, match="mobilenet"):
+        Slam(cfg, device="cpu")

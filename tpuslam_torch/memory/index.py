@@ -7,13 +7,17 @@ vectors.  Exact top-k over that scale is a single small matmul; no ANN
 structure is warranted.  This index reproduces the IDMap semantics
 (add_with_ids / remove_ids / reconstruct / search) as contiguous numpy
 arrays.  Searches run on the host; the embeddings themselves are produced
-on the device by the fused step.
+on the device by the fused step.  `batched_cosine_topk` is the device path
+for large batched searches (matmul + torch.topk).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from tpuslam_torch import full_fp32
 
 
 class CosineIndex:
@@ -106,3 +110,11 @@ class CosineIndex:
 def normalize_l2(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     x = np.asarray(x, np.float32)
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), eps)
+
+
+@full_fp32()
+def batched_cosine_topk(queries: torch.Tensor, vectors: torch.Tensor, k: int = 100):
+    """Exact top-k inner-product search of many queries (Q, D) against
+    (N, D) vectors on their device, in full float32 (TF32 off): returns
+    (similarities (Q, k), indices (Q, k)), best first."""
+    return torch.topk(queries @ vectors.T, k, dim=-1)

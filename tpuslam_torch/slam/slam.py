@@ -1,24 +1,36 @@
 """Online continual-SLAM loop.
 
-Counterpart of `tpuslam/slam/slam.py` with `pipeline_depth=0`: per frame one
-`adapt_step` (or `eval_step` with `adaptation: false`) on the device, then
-host bookkeeping -- replay-buffer admission, pose-graph vertex and edge,
-metrics -- from one packed readback.
+Counterpart of `tpuslam/slam/slam.py`: per frame one `adapt_step` (or
+`eval_step` with `adaptation: false`) on the device, whose readback is one
+packed vector, then host bookkeeping -- replay-buffer admission, pose-graph
+vertex and edge, loop-closure search and pose-graph solve, metrics.
+
+With `pipeline_depth` N > 0 the bookkeeping of frame t runs while frames
+t+1..t+N are dispatched: `_dispatch` starts non-blocking copies of
+everything `_retire` reads into pinned host memory and records an event,
+and `_retire` waits on that event alone.  Retire reads only tensors made
+at the frame's own dispatch; the loop-closure pose prediction uses the
+newest weights, as the JAX package documents.  `run` drives the loop with a
+thread pool that prepares the next frames on the host.
 
 Kept reference behaviours: frames whose signed relative distance is below
 `min_distance` are skipped (zero losses, no vertex) but still offered to the
 replay buffer; the odometry edge uses inv(cam_T_cam(0, 1)) unless the rig is
-reversing; odometry covariance diag(1, 1, .1, 1, 1, .1); the first vertex is
-pinned to dataset.global_poses[1]; `start_frame` gates the mapping.
+reversing; odometry covariance diag(1, 1, .1, 1, 1, .1), loop edges weighted
+0.5x; the first vertex is pinned to dataset.global_poses[1]; loop closures
+every `keyframe_frequency` steps while step < 4000, with a cooldown of
+`lc_distance_poses`; `start_frame` gates the mapping.
 
 Not ported yet, and refused with NotImplementedError rather than ignored:
-loop closure (and its MobileNet embedder), the expert/generalist and CoVIO
-async modes, `pipeline_depth > 0`, periodic plots, checkpoint loading, and
-the Kitti / RobotCar datasets.
+the MobileNet embedder, the expert/generalist and CoVIO async modes,
+periodic plots, checkpoint loading, and the Kitti / RobotCar datasets.
 """
 from __future__ import annotations
 
+import pickle
 import time
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -30,22 +42,35 @@ from tpuslam_torch.config.schema import Config
 from tpuslam_torch.data.base import Sample
 from tpuslam_torch.data.synthetic import SyntheticDataset
 from tpuslam_torch.eval.depth import calc_depth_error
-from tpuslam_torch.eval.trajectory import rotation_error, translation_error
+from tpuslam_torch.eval.trajectory import calc_error, rotation_error, translation_error
+from tpuslam_torch.loopclosure import LoopClosureDetection
 from tpuslam_torch.memory.replay_buffer import ReplayBuffer
 from tpuslam_torch.models.depth_pose import init_depth_pose
 from tpuslam_torch.posegraph.graph import PoseGraph
 from tpuslam_torch.train.batch import FrameBatch, concat_batches, make_frame_batch, pad_batch
 from tpuslam_torch.train.state import make_adapt_optimizer, make_train_state
-from tpuslam_torch.train.steps import embed, adapt_step, eval_step, loss_config
+from tpuslam_torch.train.steps import (
+    adapt_step,
+    embed,
+    eval_step,
+    loss_config,
+    predict_pose_step,
+)
+
+LC_MAX_STEP = 4000  # reference hard cap on loop-closure searches
+
+
+def _odometry_information() -> np.ndarray:
+    cov = np.eye(6)
+    cov[2, 2] = cov[5, 5] = 0.1
+    return np.linalg.inv(cov)
 
 
 def _refuse_unported(config: Config, dataset) -> None:
     sc, pc = config.slam, config.depth_pose
     refused = {
-        "slam.do_loop_closures": sc.do_loop_closures,
         "slam.use_expert": sc.use_expert,
         "slam.async_adaptation": sc.async_adaptation,
-        "slam.pipeline_depth > 0": sc.pipeline_depth > 0,
         "slam.plot_frequency > 0 with logging": sc.logging and sc.plot_frequency > 0,
         "loop_closure.embedder: mobilenet": config.loop_closure.embedder == "mobilenet",
         "depth_pose.load_weights_folder": pc.load_weights_folder is not None,
@@ -70,6 +95,10 @@ class Slam:
         self.min_distance = sc.min_distance
         self.start_frame = sc.start_frame
         self.logging = sc.logging
+        self.do_loop_closures = sc.do_loop_closures
+        self.keyframe_frequency = sc.keyframe_frequency
+        self.lc_distance_poses = sc.lc_distance_poses
+        self.pipeline_depth = sc.pipeline_depth
         self.batch_size = pc.batch_size if self.do_adaptation else 1
         self.log_path = Path(pc.log_path)
         self.log_path.mkdir(parents=True, exist_ok=True)
@@ -120,6 +149,21 @@ class Slam:
         else:
             self.replay_buffer = None
 
+        # loop closures on the depth encoder's 512-d pooled stage-4 feature
+        lc = config.loop_closure
+        self.loop_closure_detection = LoopClosureDetection(
+            detection_threshold=lc.detection_threshold,
+            id_threshold=lc.id_threshold,
+            num_matches=lc.num_matches,
+            num_features=512,
+        )
+        self.lc_edge_diagnostics: List[dict] = []
+        # frame +1 images of loop-closure candidates, least recently used first
+        self._lc_cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._lc_cache_size = 32
+        # dispatched frames whose host bookkeeping has not run yet
+        self._retire_queue: "deque[Dict]" = deque()
+
         self.pose_graph = PoseGraph()
         self.gt_pose_graph = PoseGraph()
         if self.start_frame == 0:
@@ -128,6 +172,7 @@ class Slam:
         self.gt_pose_graph.add_vertex(0, self.dataset.global_poses[1], fixed=True)
 
         self.current_step = 0
+        self.since_last_loop_closures = self.lc_distance_poses
         self.rel_trans_error: List[float] = []
         self.rel_rot_error: List[float] = []
         self.depth_loss: List[float] = []
@@ -138,6 +183,9 @@ class Slam:
     def __len__(self) -> int:
         return len(self.dataset)
 
+    def _to_device(self, images: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+
     def _sample_to_batch(self, sample: Sample) -> FrameBatch:
         return make_frame_batch(
             sample.rgb[None], sample.K, sample.rel_dist[None],
@@ -147,8 +195,7 @@ class Slam:
 
     def _embed_frame(self, image: np.ndarray) -> torch.Tensor:
         """Pooled stage-4 depth-encoder embedding of one (H, W, 3) image."""
-        x = torch.from_numpy(np.ascontiguousarray(image[None], np.float32)).to(self.device)
-        return embed(self.model, x, self.loss_cfg)
+        return embed(self.model, self._to_device(image[None]), self.loss_cfg)
 
     def _training_batch(self, online: FrameBatch, sample: Sample) -> FrameBatch:
         if self.replay_buffer is None or len(self.replay_buffer) == 0:
@@ -170,52 +217,91 @@ class Slam:
         return pad_batch(concat_batches(online, replay), self.batch_size)
 
     def step(self, sample: Optional[Sample] = None) -> Dict[str, float]:
-        """One SLAM frame: device dispatch, then host bookkeeping."""
+        """One SLAM frame: device dispatch, then host bookkeeping.
+
+        With `pipeline_depth` N > 0 this dispatches frame t and retires
+        frame t-N: the losses returned are frame t-N's (zeros while the
+        queue fills), and `flush_pipeline` retires the rest."""
         self.current_step += 1
         t_start = time.perf_counter()
         if sample is None:
             sample = self.dataset[self.current_step - 1]
         entry = self._dispatch(sample)
-        out = self._retire(entry)
+        self._retire_queue.append(entry)
+        out = {"depth_loss": 0.0, "velocity_loss": 0.0}
+        while len(self._retire_queue) > self.pipeline_depth:
+            out = self._retire(self._retire_queue.popleft())
         if entry["kind"] == "full":
             self.step_times.append(time.perf_counter() - t_start)
         return out
 
     def _dispatch(self, sample: Sample) -> Dict:
-        """Device phase of one frame; returns an entry for `_retire`."""
+        """Device phase of one frame, ending with the copies of what
+        `_retire` reads; returns the entry for `_retire`."""
         step_id = self.current_step
         online = self._sample_to_batch(sample)
         if step_id > 1 and float(sample.rel_dist[1]) < self.min_distance:
             # skipped frames are still offered to the replay buffer with the
             # pre-adaptation embedding, like the reference
-            embedding = None
+            entry = {"kind": "skip", "step_id": step_id, "sample": sample, "outputs": {}}
             if self.replay_buffer is not None:
-                embedding = self._embed_frame(sample.rgb[1])
-            return {"kind": "skip", "step_id": step_id, "sample": sample,
-                    "embedding": embedding}
+                entry["outputs"][("embedding",)] = self._embed_frame(sample.rgb[1])
+            self._start_host_copies(entry)
+            return entry
         if self.do_adaptation:
             training = self._training_batch(online, sample)
             losses, outputs = adapt_step(
                 self.state, self.loss_cfg, training,
-                num_steps=self.adaptation_epochs, with_lc_embedding=False,
+                num_steps=self.adaptation_epochs, with_lc_embedding=self.do_loop_closures,
             )
         else:
-            losses, outputs = eval_step(self.model, self.loss_cfg, online)
-        return {"kind": "full", "step_id": step_id, "sample": sample,
-                "losses": losses, "outputs": outputs}
+            losses, outputs = eval_step(self.model, self.loss_cfg, online,
+                                        with_lc_embedding=self.do_loop_closures)
+        entry = {"kind": "full", "step_id": step_id, "sample": sample,
+                 "losses": losses, "outputs": outputs}
+        self._start_host_copies(entry)
+        return entry
+
+    def _start_host_copies(self, entry: Dict) -> None:
+        """Copy every tensor `_retire` reads to the host, without blocking
+        on the card: into pinned memory on the current stream, then an
+        event that `_retire` waits on.  On the CPU the tensors are read in
+        place: they are made by this frame's dispatch and never written
+        again."""
+        outputs = entry["outputs"]
+        if entry["kind"] == "skip":
+            reads = {"embedding": outputs.get(("embedding",))}
+        else:
+            reads = {"packed": outputs[("retire_packed",)]}
+            if self.logging and entry["sample"].depth is not None:
+                reads["depth"] = outputs[("depth", 0)][0, ..., 0]
+        host = {}
+        for name, t in reads.items():
+            if t is None or t.device.type == "cpu":
+                host[name] = t
+                continue
+            host[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host[name].copy_(t, non_blocking=True)
+        entry["host"] = host
+        entry["event"] = None
+        if self.device.type == "cuda":
+            entry["event"] = torch.cuda.Event()
+            entry["event"].record()
 
     def _retire(self, entry: Dict) -> Dict[str, float]:
-        """Host phase of one frame: one readback, then replay-buffer
-        admission, pose-graph vertex and edge, and metrics."""
+        """Host phase of one frame: replay-buffer admission, pose-graph
+        vertex and edge, loop-closure search and solve, metrics."""
         sample: Sample = entry["sample"]
         step_id: int = entry["step_id"]
+        if entry["event"] is not None:
+            entry["event"].synchronize()
+        host = entry["host"]
         if entry["kind"] == "skip":
-            if entry["embedding"] is not None:
-                self.replay_buffer.add(sample, entry["embedding"][0].cpu().numpy())
+            if host["embedding"] is not None:
+                self.replay_buffer.add(sample, host["embedding"][0].numpy())
             return {"depth_loss": 0.0, "velocity_loss": 0.0}
-        outputs = entry["outputs"]
-        flat = outputs[("retire_packed",)].cpu().numpy()
-        D = int(outputs[("embedding",)].shape[-1])
+        flat = host["packed"].numpy()
+        D = int(entry["outputs"][("embedding",)].shape[-1])
         T01 = np.asarray(flat[:16].reshape(4, 4), np.float64)
         embedding = flat[16:16 + D]
         dl, vl, tl = (float(x) for x in flat[16 + D:19 + D])
@@ -241,10 +327,20 @@ class Slam:
         elif step_id > self.start_frame:
             prev_id = self.pose_graph.vertex_ids[-1]
             self.pose_graph.add_vertex(step_id, self.pose_graph.get_pose(prev_id) @ transformation)
-            cov = np.eye(6)
-            cov[2, 2] = cov[5, 5] = 0.1
             self.pose_graph.add_edge((prev_id, step_id), transformation,
-                                     information=np.linalg.inv(cov))
+                                     information=_odometry_information())
+
+        if self.do_loop_closures and step_id >= self.start_frame:
+            # the packed vector ends with the frame +1 loop-closure embedding
+            self.loop_closure_detection.add(step_id, flat[19 + D:])
+            optimized = False
+            if (step_id % self.keyframe_frequency == 0 and step_id < LC_MAX_STEP
+                    and self.since_last_loop_closures > self.lc_distance_poses):
+                optimized = self._close_loops(step_id, sample)
+            if optimized:
+                self.since_last_loop_closures = 0
+            else:
+                self.since_last_loop_closures += 1
 
         if self.logging:
             rel_err = np.linalg.inv(gt_transformation) @ transformation
@@ -253,9 +349,125 @@ class Slam:
             self.depth_loss.append(dl)
             self.velocity_loss.append(vl)
             if sample.depth is not None:
-                pred_depth = outputs[("depth", 0)][0, ..., 0].cpu().numpy()
                 self.depth_error.append(calc_depth_error(
-                    pred_depth, sample.depth,
+                    host["depth"].numpy(), sample.depth,
                     min_depth=self.loss_cfg.min_depth, max_depth=self.loss_cfg.max_depth,
                 ))
         return losses_out
+
+    def _close_loops(self, step_id: int, sample: Sample) -> bool:
+        """Search the index for keyframe `step_id`, add a loop edge for each
+        match from the pose network on (frame +1, candidate), and solve the
+        graph; True when it was solved."""
+        lc_ids, sims = self.loop_closure_detection.search(step_id)
+        for lc_id, sim in zip(lc_ids, sims):
+            lc_image = self._lc_image(lc_id)
+            if lc_image is None:
+                continue
+            T_lc, _ = predict_pose_step(
+                self.model, self._to_device(sample.rgb[2][None]),
+                self._to_device(lc_image[None]), bf16_networks=self.loss_cfg.bf16_networks,
+            )
+            lc_transformation = T_lc[0].cpu().numpy().astype(np.float64)
+            self.pose_graph.add_edge((step_id, lc_id), lc_transformation,
+                                     information=0.5 * _odometry_information(),
+                                     is_loop_closure=True)
+            # how good was the predicted loop pose? (a wrong one makes the
+            # solve pull the trajectory off)
+            gt_rel = self.gt_pose_graph.get_transform(step_id, lc_id)
+            diag = {
+                "step": step_id,
+                "lc_id": int(lc_id),
+                "sim": float(sim),
+                "pred_dist": float(np.linalg.norm(lc_transformation[:3, 3])),
+                "gt_dist": float(np.linalg.norm(gt_rel[:3, 3])),
+                "trans_err": float(np.linalg.norm(lc_transformation[:3, 3] - gt_rel[:3, 3])),
+            }
+            self.lc_edge_diagnostics.append(diag)
+            if self.logging:
+                print(f"loop closure {step_id} -> {lc_id} [sim={sim:.3f}, "
+                      f"pred_dist={diag['pred_dist']:.1f}m, gt_dist={diag['gt_dist']:.1f}m]")
+        if not lc_ids:
+            return False
+        self.pose_graph.optimize(max_iterations=10000, backend="auto", device=self.device)
+        return True
+
+    def _lc_image(self, lc_id: int) -> Optional[np.ndarray]:
+        """Frame +1 image of the step that registered `lc_id`, served by the
+        dataset behind a bounded LRU: one candidate can be probed on several
+        later frames."""
+        idx = lc_id - 1
+        if not 0 <= idx < len(self.dataset):
+            return None
+        cached = self._lc_cache.get(idx)
+        if cached is not None:
+            self._lc_cache.move_to_end(idx)
+            return cached
+        image = self.dataset[idx].rgb[2]
+        self._lc_cache[idx] = image
+        if len(self._lc_cache) > self._lc_cache_size:
+            self._lc_cache.popitem(last=False)
+        return image
+
+    def run(
+        self,
+        max_steps: Optional[int] = None,
+        progress: bool = True,
+        prefetch_depth: int = 3,
+        prefetch_workers: int = 1,
+    ) -> "Slam":
+        """Drive the loop with worker threads that prepare up to
+        `prefetch_depth` frames ahead of the device, consumed in order.
+        The workers only make numpy samples; every tensor is made in this
+        thread.  Ends with `flush_pipeline`."""
+        n = len(self) if max_steps is None else min(max_steps, len(self))
+        depth = max(1, prefetch_depth)
+        with ThreadPoolExecutor(max_workers=max(1, prefetch_workers)) as pool:
+            pending = deque(
+                pool.submit(self.dataset.__getitem__, self.current_step + k)
+                for k in range(min(depth, n))
+            )
+            for k in range(n):
+                sample = pending.popleft().result()
+                if k + depth < n:
+                    pending.append(
+                        pool.submit(self.dataset.__getitem__, self.current_step + depth))
+                losses = self.step(sample=sample)
+                if progress and self.current_step % 25 == 0:
+                    print(f"step {self.current_step}/{n} loss={losses.get('loss', 0):.4f} "
+                          f"({1.0 / max(np.mean(self.step_times[-25:]), 1e-9):.1f} fps)")
+        self.flush_pipeline()
+        return self
+
+    def flush_pipeline(self) -> None:
+        """Retire every queued frame: after this the pose graph, replay
+        buffer, loop-closure index and metrics cover every dispatched frame."""
+        while self._retire_queue:
+            self._retire(self._retire_queue.popleft())
+
+    def trajectory(self, graph: Optional[PoseGraph] = None) -> np.ndarray:
+        self.flush_pipeline()
+        g = graph if graph is not None else self.pose_graph
+        return np.stack([p[:3, 3] for p in g.get_all_poses()])
+
+    def save_metrics(self) -> Path:
+        self.flush_pipeline()
+        data = {
+            "rel_trans_error": self.rel_trans_error,
+            "rel_rot_error": self.rel_rot_error,
+            "depth_loss": self.depth_loss,
+            "velocity_loss": self.velocity_loss,
+            "depth_error": self.depth_error,
+            "step_times": self.step_times,
+        }
+        path = self.log_path / "metrics.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+        return path
+
+    def final_report(self) -> str:
+        self.flush_pipeline()
+        pred = self.pose_graph.get_all_poses()
+        gt = self.gt_pose_graph.get_all_poses()
+        n = min(len(pred), len(gt))
+        return calc_error(pred[:n], gt[:n])

@@ -393,14 +393,19 @@ def adapt_step(
 
 @torch.no_grad()
 @full_fp32()
-def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch):
+def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch,
+              with_lc_embedding: bool = False):
     """No-grad forward: losses + outputs + normalised embedding (the
     `adaptation: false` SLAM path).  The warp runs without taps (K1, K2, K4
-    or K5, as the flags route it) and no backward kernel runs."""
+    or K5, as the flags route it) and no backward kernel runs.  With
+    `with_lc_embedding`, the loop-closure embedding of the +1 frames (the
+    encoder only) is packed too."""
     depth_feats, pose_feat = _frozen_features(model, batch, cfg)
     losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feat)
     outputs[("feat4",)] = depth_feats[-1].mean((2, 3))
     outputs[("embedding",)] = l2_normalize(outputs[("feat4",)])
+    if with_lc_embedding:
+        outputs[("lc_embedding",)] = embed(model, batch.frame(1), cfg)
     outputs[("retire_packed",)] = _pack_retire(losses, outputs)
     return losses, outputs
 
