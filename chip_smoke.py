@@ -10,14 +10,19 @@ Phases, each printing lines tagged with its name and raising on failure
 2. build: both kernel libraries (tpuslam_torch/csrc/warp.cu, reproj.cu),
    one nvcc each, started together, then the C++ pose-graph solver
    (native/posegraph.cc, g++);
-3. main: `Slam.step` with online adaptation on the synthetic world at
-   192 x 640, ResNet-18 depth and pose, batch 3, K = 5, the shipped
-   `pallas_*` defaults: K1 runs with taps on N = 2*S*B = 24 images;
+3. main: eight frames of `Slam.step` with online adaptation on the
+   synthetic world at 192 x 640, ResNet-18 depth and pose, batch 3, K = 5,
+   the shipped `pallas_*` defaults: K1 runs with taps on N = 2*S*B = 24
+   images;
 4. profile: three more frames under torch.profiler give the host / device
-   split of a frame;
+   split of a frame; then cli adapt: `Slam.save_model` of that Slam, and
+   `tpuslam_torch.cli.adapt` on a YAML with `adapt_kitti.yaml`'s settings
+   (`Dataset: Synthetic`, 12 frames, `load_weights_folder` that checkpoint,
+   `plot_frequency` at its default): the reload bit for bit, the CLI's
+   output files and 5 K1a launches per frame;
 5. eval: two frames with `adaptation: false` (batch 1): K1 without taps on
    N = 2*S = 8 images;
-6. two-kernel main: twelve adapted frames with `pallas_fused_grad: false`:
+6. two-kernel main: eight adapted frames with `pallas_fused_grad: false`:
    per frame 5 launches each of K2's forward and backward kernels with
    exact taps, and no K1 launch; two-kernel profile: three more frames
    under torch.profiler, beside the numbers of phase 4;
@@ -48,7 +53,19 @@ Phases, each printing lines tagged with its name and raising on failure
     as it stood before that solve, and a 1,000-vertex chain, solved by the
     float64 LM on the card and on the CPU and by the C++ solver, which must
     agree;
-15. kernels: every kernel (K1 with and without taps, K2's forward and
+15. rungs: `tpuslam_torch.cli.rungs` at 192 x 640, 16 frames, all five
+    rungs and rung 5's sync ablation, with the launches read around each
+    rung (K1b once a frame in rung 1 and in the async rung 5, whose updates
+    launch K1a 3 times each on a second CUDA stream; K1a 3 times a frame
+    elsewhere, plus once per generalist consolidation in rung 3), the
+    async rung's launched / adopted updates and each rung's steady
+    ms/frame;
+16. async check: the CoVIO update on the side stream against the same
+    update on the current stream (K = 1: 1e-5 relative; K = 5 logged beside
+    two runs on one stream), the serving state unchanged bit for bit, and a
+    serving `eval_step` issued before the update's event is waited on equal
+    to one issued after it;
+17. kernels: every kernel (K1 with and without taps, K2's forward and
     backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it (the error-map
@@ -62,7 +79,7 @@ Phases, each printing lines tagged with its name and raising on failure
     gathers, torch's grid_sample forward and backward (K3 and K3' are K2
     with exact taps, `warp_dynamic`: no path calls them, and their rows
     carry K2's numbers);
-16. reference: one adaptation step on the card and on the CPU at a small
+18. reference: one adaptation step on the card and on the CPU at a small
     size, with the K1 path, the fused stack, the two-kernel path and the
     packed variant (and the K1 path again at their size), which must agree.
 
@@ -164,10 +181,10 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
     flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    # the trace may miss the first launches after it starts (up to 4 of
+    # the trace may miss the first launches after it starts (up to 11 of
     # them seen on the H100), and now and then it holds none of them (seen
     # once, for grid_sample): take a fresh one, at most three
-    warm = 10
+    warm = 30
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(warm + iters):
@@ -833,6 +850,219 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
                  "the 1,000-vertex chain", strict=False)
 
 
+RUNG_FRAMES = 16  # frames of each rung of the "rungs" phase
+
+
+def phase_rungs(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict:
+    """`tpuslam_torch.cli.rungs` at the width of `adapt_kitti.yaml` (192 x
+    640, ResNet-18, batch 3; the rungs' own K = 3), 16 frames of the
+    synthetic loop each, all five rungs and rung 5's sync ablation, with the
+    launch counts read around each rung: rung 1 K1b once a frame; rungs 2,
+    4 and 5 sync K1a 3 times a frame; rung 3 also once per generalist
+    consolidation (3 in 16 frames); the async rung 5 K1b once a frame and
+    K1a 3 times per launched update, with 1 <= adopted <= launched.  Every
+    loss finite.  Returns name -> numbers of the rung."""
+    import numpy as np
+
+    from tpuslam_torch.cli import rungs
+    from tpuslam_torch.slam import Slam
+
+    out = {}
+    run = rungs._run
+
+    def counted(name, cfg, dataset, diagnostics=False, device="cuda"):
+        reset_launches(wp, rp)
+        with PathGuard(wp, rp, captured.setdefault(name, {})):
+            slam = run(name, cfg, dataset, diagnostics, device)
+        warm = slam.step_times[5:]
+        gen = slam.generalist_state
+        out[name] = dict(
+            launches=read_launches(wp, rp), frames=len(slam.step_times),
+            ms=1e3 * float(np.mean(warm)), launched=slam.async_updates_launched,
+            adopted=slam.async_updates_adopted, consolidations=gen.step if gen else 0,
+            finite=all(math.isfinite(v) for v in slam.depth_loss + slam.velocity_loss),
+            loops=slam.pose_graph.num_loop_closures)
+        return slam
+
+    consolidate, consolidate_ms = Slam._consolidate_generalist, []
+
+    def timed_consolidate(self):  # host time: the frame is host-bound
+        t0 = time.perf_counter()
+        consolidate(self)
+        consolidate_ms.append(1e3 * (time.perf_counter() - t0))
+
+    rungs._run, Slam._consolidate_generalist = counted, timed_consolidate
+    try:
+        rungs.main(["--height", str(H), "--width", str(W), "--frames", str(RUNG_FRAMES),
+                    "--rungs", "1,2,3,4,5", "--device", "cuda", "--log", str(log_dir / "rungs")])
+    finally:
+        rungs._run, Slam._consolidate_generalist = run, consolidate
+    for name, r in out.items():
+        # rung 5 chains two worlds of RUNG_FRAMES // 2 frames
+        n = 2 * (RUNG_FRAMES // 2) if name.startswith("rung 5") else RUNG_FRAMES
+        if name.startswith("rung 1"):
+            want = {"warp_static": n}
+        elif name.startswith("rung 3"):
+            want = {"warp_static_fused": 3 * n + r["consolidations"]}
+        elif name.startswith("rung 5:"):
+            want = {"warp_static": n, "warp_static_fused": 3 * r["launched"]}
+        else:
+            want = {"warp_static_fused": 3 * n}
+        expect_launches(name, r["launches"], want)
+        if r["frames"] != n or not r["finite"]:
+            raise AssertionError(f"{name}: {r}")
+        extra = ""
+        if name.startswith("rung 3"):
+            if r["consolidations"] != n // 5:  # every 5th frame (`generalist_interval`)
+                raise AssertionError(f"{name}: {r['consolidations']} consolidations, "
+                                     f"not {n // 5}")
+            extra = (f", {r['consolidations']} generalist consolidations, host "
+                     + " / ".join(f"{ms:.1f}" for ms in consolidate_ms) + " ms each")
+        if name.startswith("rung 5:"):
+            if not 1 <= r["adopted"] <= r["launched"]:
+                raise AssertionError(f"{name}: launched {r['launched']}, adopted {r['adopted']}")
+            extra = f", updates launched {r['launched']}, adopted {r['adopted']}"
+        log("rungs", f"{name}: launches { {k: v for k, v in r['launches'].items() if v} }, "
+            f"steady {r['ms']:.2f} ms/frame (frames 6-{n}), loop edges {r['loops']}{extra} "
+            f"[{card}]")
+    a, b = out["rung 5: CoVIO async, 2-domain chain"], out["rung 5 sync ablation (same config)"]
+    log("rungs", f"rung 5 async / sync, same call: steady {a['ms']:.2f} / {b['ms']:.2f} "
+        f"ms/frame ({100 * (a['ms'] / b['ms'] - 1):+.1f}%) [{card}]")
+    return out
+
+
+def phase_async_check(torch, log_dir: Path, card: str) -> None:
+    """The CoVIO update on the side stream against the same update on the
+    current stream, from one state S at 192 x 640 (after two adapted frames,
+    so with Adam state).  `consolidate_step_async` on a side stream, then a
+    serving `eval_step` on S on the current stream before the update's
+    event is waited on; `consolidate_step` on the current stream from
+    `clone_train_state(S)`.  With K = 1 the two updated decoders agree
+    within 1e-5 relative; S's networks and Adam state are bit for bit as
+    before; the packed readback served before the wait equals one served
+    after it.  With K = 5 the same pair is logged beside two runs on the
+    current stream: cuDNN's backward sums in no fixed order, and five Adam
+    steps carry that to ~1e-3, on one stream as on two.  Whether the update
+    was still running on the device when the eval was issued is logged: the
+    update's device work ends behind the host's launches (the frame is
+    host-bound), and a stream held busy to force the overlap blocks the
+    host once many launches wait on it."""
+    from tpuslam_torch.slam import Slam
+    from tpuslam_torch.train.state import clone_train_state
+    from tpuslam_torch.train.steps import consolidate_step, consolidate_step_async, eval_step
+
+    slam = Slam(smoke_config(log_dir, adaptation=True), device="cuda")
+    for _ in range(2):
+        slam.step()
+    S, cfg = slam.state, slam.loss_cfg
+    sample = slam.dataset[slam.current_step]
+    online = slam._sample_to_batch(sample)
+    batch = slam._training_batch(online, sample)
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in S.model.state_dict().items()}
+    adam_before = [v.clone() for st in S.optimizer.state.values() for v in st.values()]
+    stream = torch.cuda.Stream()
+
+    def decoders(state):
+        return torch.cat([v.reshape(-1).double() for k, v in state.model.state_dict().items()
+                          if "decoder" in k])
+
+    err, running = {}, {}
+    for K in (1, 5):
+        ref, ref2 = clone_train_state(S), clone_train_state(S)
+        t0 = time.perf_counter()
+        clone, event = consolidate_step_async(S, cfg, batch, K, stream)
+        launch_ms = 1e3 * (time.perf_counter() - t0)
+        running[K] = not event.query()
+        _, during = eval_step(S.model, cfg, online)
+        event.synchronize()
+        consolidate_step(ref, cfg, batch, K)
+        consolidate_step(ref2, cfg, batch, K)
+        _, after = eval_step(S.model, cfg, online)
+        torch.cuda.synchronize()
+        err[f"K{K}_side_vs_current"] = rel_err(decoders(clone), decoders(ref))
+        err[f"K{K}_current_vs_current"] = rel_err(decoders(ref2), decoders(ref))
+        err[f"K{K}_update_size"] = rel_err(decoders(clone), decoders(S))
+        err[f"K{K}_served_equal"] = torch.equal(during[("retire_packed",)],
+                                                after[("retire_packed",)])
+        err[f"K{K}_launch_ms"] = launch_ms
+    same_s = all(torch.equal(v, before[k]) for k, v in S.model.state_dict().items())
+    same_adam = all(torch.equal(v, w) for v, w in zip(
+        [v for st in S.optimizer.state.values() for v in st.values()], adam_before))
+    _require(same_s and same_adam and err["K1_served_equal"] and err["K5_served_equal"]
+             and err["K1_side_vs_current"] <= 1e-5 and err["K1_update_size"] > 1e-4,
+             "async check", dict(err, state_unchanged=same_s, adam_unchanged=same_adam))
+    for K in (1, 5):
+        log("async check", f"K={K} update on the side stream vs on the current stream: decoders "
+            f"relative {err[f'K{K}_side_vs_current']:.3g}, two runs on the current stream "
+            f"{err[f'K{K}_current_vs_current']:.3g} (the update moved them "
+            f"{err[f'K{K}_update_size']:.3g}); host launch {err[f'K{K}_launch_ms']:.1f} ms; the "
+            f"update was {'still' if running[K] else 'no longer'} running on the device when "
+            f"the serving eval_step was issued, whose readback equals one after the wait bit "
+            f"for bit [{card}]")
+    log("async check", "the source state's networks and Adam state are unchanged bit for bit")
+    # why no side stream is held busy above to force the overlap: the host
+    # then waits in the update's launches
+    probe = clone_train_state(S)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(1_000_000_000)  # ~0.5 s of the side stream
+        t0 = time.perf_counter()
+        consolidate_step(probe, cfg, batch, 1)
+        held_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    log("async check", f"with the side stream held by a sleep kernel of 1e9 cycles, the host "
+        f"launch of a K=1 update takes {held_ms:.1f} ms ({err['K1_launch_ms']:.1f} ms above with "
+        f"the stream free) [{card}]")
+
+
+def phase_cli_adapt(torch, wp, rp, main_slam, log_dir: Path, captured: dict, card: str) -> None:
+    """`Slam.save_model` of the "main" path's Slam, then
+    `tpuslam_torch.cli.adapt` on a YAML with `adapt_kitti.yaml`'s settings
+    (192 x 640, batch 3, K = 5, loop closure, `pipeline_depth: 3`,
+    `plot_frequency` at its default) but `Dataset: Synthetic`, 12 frames and
+    `load_weights_folder` set to that checkpoint: a Slam built from the YAML
+    holds the saved networks bit for bit; the CLI run writes metrics.pkl,
+    log.txt with the trajectory report and models/weights_000/, launching
+    K1a 5 times a frame."""
+    import yaml
+
+    from tpuslam_torch.cli import adapt
+    from tpuslam_torch.config import parse_config
+    from tpuslam_torch.slam import Slam
+
+    main_slam.save_model()
+    folder = Path(main_slam.log_path) / "models" / "weights_000"
+    out = log_dir / "cli_adapt"
+    cfg = yaml.safe_load((ROOT / "tpuslam_torch/config/defaults/adapt_kitti.yaml").read_text())
+    cfg["Dataset"].update(dataset="Synthetic", num_frames=12)
+    cfg["DepthPosePrediction"].update(log_path=str(out), load_weights_folder=str(folder))
+    cfg["ReplayBuffer"]["load_path"] = str(out / "replay_buffer")
+    path = log_dir / "adapt_kitti_synthetic.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    loaded = Slam(parse_config(path), device="cuda").model.state_dict()
+    saved = main_slam.model.state_dict()
+    if loaded.keys() != saved.keys() or not all(torch.equal(loaded[k], saved[k]) for k in saved):
+        raise AssertionError("cli adapt: the loaded networks differ from the saved ones")
+    del loaded
+    reset_launches(wp, rp)
+    t0 = time.perf_counter()
+    with PathGuard(wp, rp, captured):
+        rc = adapt.main(["--config", str(path), "--device", "cuda", "--no-progress"])
+    wall = time.perf_counter() - t0
+    launches = read_launches(wp, rp)
+    report = (out / "log.txt").read_text() if (out / "log.txt").exists() else ""
+    missing = [f for f in ("metrics.pkl", "log.txt", "models/weights_000/model.pt",
+                           "models/weights_000/meta.yaml") if not (out / f).exists()]
+    if rc != 0 or missing or "Abs traj RMSE" not in report:
+        raise AssertionError(f"cli adapt: rc {rc}, missing {missing}, log {report!r}")
+    expect_launches("cli adapt", launches, {"warp_static_fused": 5 * 12})
+    plots = "ran" if (out / "trajectory.png").exists() else "skipped (see the line above)"
+    ate = [l.strip() for l in report.splitlines() if "Abs traj RMSE" in l]
+    log("cli adapt", f"saved and reloaded bit for bit; cli.adapt over 12 frames in {wall:.2f} s, "
+        f"launches { {k: v for k, v in launches.items() if v} }, {ate}, plotting {plots} [{card}]")
+
+
 def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
     """Where a frame's time goes: host time making the synthetic frame,
     the rest of `Slam.step`, and the device's busy time (union of the
@@ -1202,14 +1432,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         log_dir = Path(tmp)
         k1_launches, slam, k1_ms = run_adapt_path(
-            torch, wp, rp, "main", log_dir, cap.setdefault("main", {}), card, 12, k1_taps)
+            torch, wp, rp, "main", log_dir, cap.setdefault("main", {}), card, 8, k1_taps)
         k1_prof = phase_profile(torch, slam, card, "profile")
+        phase_cli_adapt(torch, wp, rp, slam, log_dir, cap.setdefault("cli adapt", {}), card)
         del slam
         eval_launches = run_eval_path(torch, wp, rp, "eval", log_dir, cap.setdefault("eval", {}),
                                       {"warp_static": 2})
         two_launches, slam, two_ms = run_adapt_path(
             torch, wp, rp, "two-kernel main", log_dir, cap.setdefault("two-kernel main", {}),
-            card, 12, two_kernel, pallas_fused_grad=False)
+            card, 8, two_kernel, pallas_fused_grad=False)
         two_prof = phase_profile(torch, slam, card, "two-kernel profile")
         del slam
         log_beside("two-kernel profile", card, "K1 path / two-kernel path",
@@ -1227,7 +1458,7 @@ def main() -> int:
         del slam
         phase_predictor(torch, wp, rp, log_dir, cap.setdefault("predictor", {}), card)
         fused_launches, slam, fused_ms = run_adapt_path(
-            torch, wp, rp, "fused main", log_dir, cap.setdefault("fused main", {}), card, 12,
+            torch, wp, rp, "fused main", log_dir, cap.setdefault("fused main", {}), card, 8,
             fused_main, **FUSED)
         fused_prof = phase_profile(torch, slam, card, "fused profile")
         del slam
@@ -1241,6 +1472,8 @@ def main() -> int:
             fused_loss, pallas_tall=True, pallas_fused_loss=True)
         del slam
         phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card, k1_ms)
+        phase_rungs(torch, wp, rp, log_dir, cap.setdefault("rungs", {}), card)
+        phase_async_check(torch, log_dir, card)
         results = phase_kernels(torch, wp, rp, cap, card)
         cap.clear()
         phase_reference(torch, log_dir, "K1 path")

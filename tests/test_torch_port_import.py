@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port.
 
 `tpuslam_torch` and `chip_smoke.py` import nothing of JAX and nothing of the
-JAX package `tpuslam`, not even its JAX-free modules (the port keeps copies);
+JAX package `tpuslam`, not even its JAX-free modules (the port keeps copies),
+and neither `msgpack` nor `flax` (the port reads flax checkpoints itself);
 a short CPU run of the port leaves `jax` out of `sys.modules`; and the entry
 points refuse to run without CUDA unless the caller asks for the CPU.
 """
@@ -17,7 +18,7 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpuslam")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tpuslam")
 
 
 def _imported_roots(path: Path):
@@ -37,7 +38,11 @@ def test_port_sources_import_no_jax_and_no_reference_package():
     assert {"tpuslam_torch/ops/warp.py", "tpuslam_torch/ops/reproj.py",
             "tpuslam_torch/ops/build.py", "tpuslam_torch/posegraph/lm.py",
             "tpuslam_torch/posegraph/native.py",
-            "tpuslam_torch/loopclosure/detection.py"} <= names
+            "tpuslam_torch/loopclosure/detection.py", "tpuslam_torch/cli/adapt.py",
+            "tpuslam_torch/cli/rungs.py", "tpuslam_torch/viz/plots.py",
+            "tpuslam_torch/viz/meshlab.py", "tpuslam_torch/viz/pointcloud.py",
+            "tpuslam_torch/checkpoint/io.py",
+            "tpuslam_torch/checkpoint/msgpack_reader.py"} <= names
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -63,7 +68,8 @@ assert all(l == l for l in slam.depth_loss), slam.depth_loss
 assert slam.pose_graph.vertex_ids == [0, 1, 2, 3], slam.pose_graph.vertex_ids
 slam.pose_graph.optimize(backend="auto", device="cpu")
 slam.pose_graph.optimize(backend="torch", device="cpu")
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpuslam"))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "tpuslam"))
 print("LEAKED", leaked)
 """
 
@@ -135,10 +141,13 @@ def test_entry_points_turn_tf32_off_and_restore_it():
 
 def test_unported_options_are_refused(tmp_path):
     """Options whose modules are not ported yet raise NotImplementedError
-    instead of being ignored (expert, async, the MobileNet embedder); loop
-    closure and `pipeline_depth > 0` are ported and construct; every
-    `pallas_*` flag is accepted and mapped, the two-kernel variants (K2)
-    and the fused stack (K4-K8) alike."""
+    instead of being ignored: the MobileNet embedder, the Kitti and
+    RobotCar datasets, the predictor's `train` / `validate` and ImageNet
+    encoders (`resnet_pretrained`).  The ported ones construct: loop
+    closure, `pipeline_depth > 0`, the dual-network and async modes,
+    periodic plots and `load_weights_folder` in `Slam`, the predictor's
+    checkpoints; every `pallas_*` flag is accepted and mapped, the
+    two-kernel variants (K2) and the fused stack (K4-K8) alike."""
     from tpuslam_torch.config import Config
     from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig, SlamConfig
     from tpuslam_torch.predictor import DepthPosePrediction
@@ -155,27 +164,37 @@ def test_unported_options_are_refused(tmp_path):
     assert (cfg.pallas_fused_grad, cfg.pallas_extra_tiles) == (False, 1)
     pc = DepthPoseConfig(log_path=str(tmp_path), batch_size=2)
     predictor = DepthPosePrediction(DatasetConfig(height=64, width=192), pc, device="cpu")
-    for method in ("train", "validate", "save_model", "load_model", "load_online_model"):
+    for method in ("train", "validate"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
             getattr(predictor, method)()
+    folder = predictor.save_model()
+    predictor.load_model(folder=folder)
+    assert predictor.is_trained
     with pytest.raises(NotImplementedError, match="encoder_weights"):
         DepthPosePrediction(DatasetConfig(), DepthPoseConfig(resnet_pretrained=True), device="cpu")
-    for slam_cfg in (dict(do_loop_closures=True), dict(use_expert=True),
-                     dict(async_adaptation=True), dict(pipeline_depth=1)):
+
+    def config(**slam_cfg):
         cfg = Config()
+        cfg.dataset = DatasetConfig(dataset="Synthetic", height=64, width=192, num_frames=4)
         cfg.depth_pose = DepthPoseConfig(log_path=str(tmp_path))
         cfg.slam = SlamConfig(**{"do_loop_closures": False, "plot_frequency": 0, **slam_cfg})
-        if "do_loop_closures" in slam_cfg or "pipeline_depth" in slam_cfg:
-            # ported: loop closure and the pipelined retire construct
-            slam = Slam(cfg, device="cpu")
-            assert (slam.do_loop_closures, slam.pipeline_depth) == (
-                slam_cfg.get("do_loop_closures", False), slam_cfg.get("pipeline_depth", 0))
-            continue
-        with pytest.raises(NotImplementedError):
+        return cfg
+
+    for slam_cfg in (dict(do_loop_closures=True), dict(pipeline_depth=1), dict(use_expert=True),
+                     dict(async_adaptation=True), dict(plot_frequency=100, logging=True)):
+        slam = Slam(config(**slam_cfg), device="cpu")
+        for key, value in slam_cfg.items():
+            assert getattr(slam, key) == value, key
+    assert Slam(config(use_expert=True), device="cpu").generalist_state is not None
+    cfg = config()
+    cfg.depth_pose.load_weights_folder = str(folder)
+    Slam(cfg, device="cpu")
+    for dataset in ("Kitti", "RobotCar"):
+        cfg = config()
+        cfg.dataset.dataset = dataset
+        with pytest.raises(NotImplementedError, match=f"dataset {dataset}"):
             Slam(cfg, device="cpu")
-    cfg = Config()
-    cfg.depth_pose = DepthPoseConfig(log_path=str(tmp_path))
-    cfg.slam = SlamConfig(plot_frequency=0)
+    cfg = config()
     cfg.loop_closure.embedder = "mobilenet"
     with pytest.raises(NotImplementedError, match="mobilenet"):
         Slam(cfg, device="cpu")

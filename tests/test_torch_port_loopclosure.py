@@ -115,7 +115,7 @@ def _edges(slam):
     return [(d["step"], d["lc_id"]) for d in slam.lc_edge_diagnostics]
 
 
-def test_search_matches_jax(rng):
+def test_search_matches_jax(rng, tmp_path):
     """The same embeddings in both detectors: the same candidate ids and
     similarities (1e-6) for every keyframe, at a threshold none of them is
     within 1e-3 of."""
@@ -137,8 +137,12 @@ def test_search_matches_jax(rng):
     _clear_of_threshold(log, 0.8)
     assert LoopClosureDetection.predict(emb[0], emb[20]) == pytest.approx(
         JaxLoopClosureDetection.predict(emb[0], emb[20]), abs=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        dets[1].display_matches(1, None, [], [])
+    # the match figures: one file per match, named as the JAX package names them
+    img = rng.uniform(size=(2, 8, 16, 3))
+    outs = [det.display_matches(1, img[0], [21], [img[1]], [0.9], filename=tmp_path / name)
+            for det, name in zip(dets, ("jax.png", "port.png"))]
+    assert [o.name for o in outs[0]] == ["jax_1_21.png"]
+    assert [o.name for o in outs[1]] == ["port_1_21.png"] and outs[1][0].exists()
 
 
 def test_batched_cosine_topk_matches_jax(rng):

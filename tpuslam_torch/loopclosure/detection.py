@@ -10,6 +10,7 @@ stage-4 feature, which the frame's step already computes.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
@@ -61,7 +62,25 @@ class LoopClosureDetection:
         b = normalize_l2(np.asarray(embedding_1, np.float32).reshape(-1))
         return float(a @ b)
 
-    def display_matches(self, *args, **kwargs):
-        raise NotImplementedError(
-            "display_matches draws with viz/, not ported to tpuslam_torch yet "
-            "(ROADMAP.md Queue 1, item 5)")
+    def display_matches(
+        self,
+        frame_id: int,
+        image,
+        match_ids,
+        match_images,
+        similarities=None,
+        filename=None,
+    ):
+        """Debug figure of a query frame against each of its matches, one
+        `viz.plot_image_matches` panel per match."""
+        from tpuslam_torch.viz.plots import plot_image_matches
+
+        outs = []
+        for k, (mid, mimg) in enumerate(zip(match_ids, match_images)):
+            sim = None if similarities is None else similarities[k]
+            out = None
+            if filename is not None:
+                f = Path(filename)
+                out = f.with_name(f"{f.stem}_{frame_id}_{mid}{f.suffix}")
+            outs.append(plot_image_matches(image, mimg, frame_id, mid, sim, out))
+        return outs

@@ -219,7 +219,16 @@ class PoseGraph:
             print(f"pose graph optimised [{backend}]: error={err:.6f}")
         return float(err)
 
-    def visualize_in_meshlab(self, *args, **kwargs):
-        raise NotImplementedError(
-            "visualize_in_meshlab writes with viz/, not ported to tpuslam_torch yet "
-            "(ROADMAP.md Queue 1, item 5)")
+    def visualize_in_meshlab(self, filename, meshlab=None, verbose: bool = True):
+        """The vertices' positions and an `l` line per edge, as an OBJ file."""
+        from tpuslam_torch.viz.meshlab import MeshlabExporter
+
+        if not self.vertex_ids:
+            return
+        exporter = meshlab if meshlab is not None else MeshlabExporter()
+        points = {i: self._poses[i][:3, 3] for i in self.vertex_ids}
+        for p in points.values():
+            exporter.add_points(p)
+        for a, b in self.edge_vertices:
+            exporter.add_line(points[a], points[b])
+        exporter.write(filename, verbose=verbose)

@@ -3,14 +3,15 @@
 Counterpart of `tpuslam/predictor.py`: adaptation (`adapt`, with the
 expert/online model pair of `use_online`), inference (`predict`,
 `predict_from_image`, `predict_from_images` with its photometric probe,
-`predict_pose`), the depth and pose metrics, and the import of a reference
+`predict_pose`), the depth and pose metrics, checkpoints (`save_model`,
+`load_model`, `load_online_model`, in the folders of `checkpoint/io.py`,
+which also reads the JAX package's), and the import of a reference
 `weights_NNN/` folder.  The warp of every step is routed by the `pallas_*`
 flags of the config, as in `Slam`.
 
 Not ported yet, and refused with NotImplementedError: `train`, `validate`,
-`save_model`, `load_model`, `load_online_model`, and ImageNet encoders
-(`encoder_weights` / `resnet_pretrained`); they need the pretrainer and the
-checkpoint format (ROADMAP.md Queue 1, item 5).
+and ImageNet encoders (`encoder_weights` / `resnet_pretrained`); they need
+the pretrainer (ROADMAP.md Queue 1, item 5).
 
 Images are NHWC float32 in [0, 1] (numpy arrays or tensors); a single image
 may omit the batch dimension.  Runs on the card unless `device="cpu"`.
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch import full_fp32, resolve_device
+from tpuslam_torch.checkpoint.io import latest_checkpoint, load_checkpoint, save_checkpoint
 from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig
 from tpuslam_torch.data.base import Sample
 from tpuslam_torch.eval.depth import _resize_bilinear, calc_depth_error
@@ -46,8 +48,8 @@ from tpuslam_torch.train.steps import (
     predict_pose_step,
 )
 
-_NOT_PORTED = ("{} needs the pretrainer and the checkpoint format (train/pretrain.py, "
-               "checkpoint/io.py), not ported to tpuslam_torch yet (ROADMAP.md Queue 1, item 5)")
+_NOT_PORTED = ("{} needs the pretrainer (train/pretrain.py), not ported to tpuslam_torch "
+               "yet (ROADMAP.md Queue 1, item 5)")
 
 
 def _untrained_warning(trained: bool) -> None:
@@ -289,13 +291,32 @@ class DepthPosePrediction:
 
     # --------------------------------------------------------- persistence
     def save_model(self) -> Path:
-        raise NotImplementedError(_NOT_PORTED.format("save_model"))
+        """The networks and Adam's state as checkpoint `epoch` under `log_path`."""
+        return save_checkpoint(self.log_path, epoch=self.epoch, model=self.state.model,
+                               optimizer=self.state.optimizer)
 
-    def load_model(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("load_model"))
+    def load_model(self, load_optimizer: bool = True, folder: Optional[Path] = None):
+        """Load `folder`, else `load_weights_folder`, else the latest
+        checkpoint under `log_path`, in place; Adam's state too with
+        `load_optimizer` where it is stored and fits."""
+        folder = folder or self.load_weights_folder
+        if folder is None:
+            folder = latest_checkpoint(self.log_path)
+        if folder is None or not Path(folder).exists():
+            print(f"Cannot find weights folder: {folder}")
+            return
+        meta = load_checkpoint(folder, self.state.model,
+                               self.state.optimizer if load_optimizer else None)
+        self.epoch = int(meta.get("epoch", 0))
+        self.is_trained = True
 
-    def load_online_model(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("load_online_model"))
+    def load_online_model(self, load_optimizer: bool = True, folder: Optional[Path] = None):
+        """Load the online (expert) networks from the same checkpoint."""
+        if self.online_state is None:
+            raise RuntimeError("constructed with use_online=False")
+        folder = folder or self.load_weights_folder
+        load_checkpoint(folder, self.online_state.model,
+                        self.online_state.optimizer if load_optimizer else None)
 
     def load_reference_checkpoint(self, weights_folder: Path):
         """Load a reference `weights_NNN/` folder: depth_encoder.pth,

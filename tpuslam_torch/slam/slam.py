@@ -13,6 +13,20 @@ at the frame's own dispatch; the loop-closure pose prediction uses the
 newest weights, as the JAX package documents.  `run` drives the loop with a
 thread pool that prepares the next frames on the host.
 
+Dual-network mode (`use_expert`): `state` is the expert, adapted every
+frame; a generalist, a clone of the initial state with its own Adam and
+generator, consolidates on replay-only batches every `generalist_interval`
+frames, and `reset_expert_from_generalist` starts the expert anew from it.
+
+CoVIO async mode (`async_adaptation`): each frame is served by `eval_step`
+with the newest finished weights, and the update runs behind it on a clone
+(`consolidate_step_async`), on a second CUDA stream that `Slam` owns.  An
+update is adopted at the first frame that finds it done (`event.query()`):
+the current stream waits on its event and `state` becomes the clone.  While
+one update is in flight no other is launched.  On the CPU the update runs
+synchronously and is adopted at the next frame.  `run` ends in
+`finish_async`, which adopts the last update.
+
 Kept reference behaviours: frames whose signed relative distance is below
 `min_distance` are skipped (zero losses, no vertex) but still offered to the
 replay buffer; the odometry edge uses inv(cam_T_cam(0, 1)) unless the rig is
@@ -22,8 +36,7 @@ every `keyframe_frequency` steps while step < 4000, with a cooldown of
 `lc_distance_poses`; `start_frame` gates the mapping.
 
 Not ported yet, and refused with NotImplementedError rather than ignored:
-the MobileNet embedder, the expert/generalist and CoVIO async modes,
-periodic plots, checkpoint loading, and the Kitti / RobotCar datasets.
+the MobileNet embedder and the Kitti / RobotCar datasets.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch import resolve_device
+from tpuslam_torch.checkpoint.io import load_checkpoint, save_checkpoint
 from tpuslam_torch.config.schema import Config
 from tpuslam_torch.data.base import Sample
 from tpuslam_torch.data.synthetic import SyntheticDataset
@@ -45,12 +59,20 @@ from tpuslam_torch.eval.depth import calc_depth_error
 from tpuslam_torch.eval.trajectory import calc_error, rotation_error, translation_error
 from tpuslam_torch.loopclosure import LoopClosureDetection
 from tpuslam_torch.memory.replay_buffer import ReplayBuffer
-from tpuslam_torch.models.depth_pose import init_depth_pose
+from tpuslam_torch.models.depth_pose import DepthPoseNet, init_depth_pose
 from tpuslam_torch.posegraph.graph import PoseGraph
 from tpuslam_torch.train.batch import FrameBatch, concat_batches, make_frame_batch, pad_batch
-from tpuslam_torch.train.state import make_adapt_optimizer, make_train_state
+from tpuslam_torch.train.state import (
+    TrainState,
+    clone_train_state,
+    make_adapt_optimizer,
+    make_train_state,
+    train_state_tensors,
+)
 from tpuslam_torch.train.steps import (
     adapt_step,
+    consolidate_step,
+    consolidate_step_async,
     embed,
     eval_step,
     loss_config,
@@ -67,13 +89,8 @@ def _odometry_information() -> np.ndarray:
 
 
 def _refuse_unported(config: Config, dataset) -> None:
-    sc, pc = config.slam, config.depth_pose
     refused = {
-        "slam.use_expert": sc.use_expert,
-        "slam.async_adaptation": sc.async_adaptation,
-        "slam.plot_frequency > 0 with logging": sc.logging and sc.plot_frequency > 0,
         "loop_closure.embedder: mobilenet": config.loop_closure.embedder == "mobilenet",
-        "depth_pose.load_weights_folder": pc.load_weights_folder is not None,
         f"dataset {config.dataset.dataset}": (
             dataset is None and config.dataset.dataset in ("Kitti", "RobotCar")),
     }
@@ -95,6 +112,7 @@ class Slam:
         self.min_distance = sc.min_distance
         self.start_frame = sc.start_frame
         self.logging = sc.logging
+        self.plot_frequency = sc.plot_frequency
         self.do_loop_closures = sc.do_loop_closures
         self.keyframe_frequency = sc.keyframe_frequency
         self.lc_distance_poses = sc.lc_distance_poses
@@ -114,17 +132,36 @@ class Slam:
             raise ValueError(f"unsupported dataset type {dc.dataset}")
 
         self.loss_cfg = loss_config(pc)
-        self.model = init_depth_pose(
+        model = init_depth_pose(
             0, resnet_depth=pc.resnet_depth, resnet_pose=pc.resnet_pose,
             scales=pc.scales, device=self.device,
         )
-        self.model.requires_grad_(False)
-        self.model.depth_decoder.requires_grad_(True)
-        self.model.pose_decoder.requires_grad_(True)
-        self.state = make_train_state(
-            self.model,
-            make_adapt_optimizer(self.model, pc.learning_rate, pc.adapt_depth_lr_scale),
-        )
+        model.requires_grad_(False)
+        model.depth_decoder.requires_grad_(True)
+        model.pose_decoder.requires_grad_(True)
+        if pc.load_weights_folder is not None and Path(pc.load_weights_folder).exists():
+            load_checkpoint(pc.load_weights_folder, model)
+            print(f"slam: loaded weights from {pc.load_weights_folder}")
+        elif pc.load_weights_folder is not None:
+            print(f"slam: weights folder not found, using random init: "
+                  f"{pc.load_weights_folder}")
+        self.state = self._fresh_state(model)
+        # dual-network mode: `state` is the expert, the generalist
+        # consolidates on replay every `generalist_interval` frames
+        self.use_expert = sc.use_expert
+        self.generalist_interval = sc.generalist_interval
+        self.generalist_steps = sc.generalist_steps
+        self.generalist_state = clone_train_state(self.state) if self.use_expert else None
+        # CoVIO async mode: the update in flight as (state, event), None
+        # when there is none; the counters show updates lag or are skipped
+        # rather than hold the frame back
+        self.async_adaptation = sc.async_adaptation
+        self._pending = None
+        self._side_stream = None
+        if self.async_adaptation and self.device.type == "cuda":
+            self._side_stream = torch.cuda.Stream(self.device)
+        self.async_updates_launched = 0
+        self.async_updates_adopted = 0
         self.replay_composition: List[List[int]] = []
 
         if self.do_adaptation and self.batch_size > 1:
@@ -182,6 +219,16 @@ class Slam:
 
     def __len__(self) -> int:
         return len(self.dataset)
+
+    @property
+    def model(self) -> DepthPoseNet:
+        """The networks that serve the frames: the (expert) state's."""
+        return self.state.model
+
+    def _fresh_state(self, model: DepthPoseNet) -> TrainState:
+        pc = self.config.depth_pose
+        return make_train_state(
+            model, make_adapt_optimizer(model, pc.learning_rate, pc.adapt_depth_lr_scale))
 
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
@@ -248,7 +295,20 @@ class Slam:
                 entry["outputs"][("embedding",)] = self._embed_frame(sample.rgb[1])
             self._start_host_copies(entry)
             return entry
-        if self.do_adaptation:
+        if self.do_adaptation and self.async_adaptation:
+            # serve the frame with the newest finished weights; launch the
+            # next update only when none is in flight
+            if self._pending is not None and self._update_done():
+                self._adopt()
+            losses, outputs = eval_step(self.model, self.loss_cfg, online,
+                                        with_lc_embedding=self.do_loop_closures)
+            if self._pending is None:
+                training = self._training_batch(online, sample)
+                self._pending = consolidate_step_async(
+                    self.state, self.loss_cfg, training, num_steps=self.adaptation_epochs,
+                    stream=self._side_stream)
+                self.async_updates_launched += 1
+        elif self.do_adaptation:
             training = self._training_batch(online, sample)
             losses, outputs = adapt_step(
                 self.state, self.loss_cfg, training,
@@ -257,10 +317,68 @@ class Slam:
         else:
             losses, outputs = eval_step(self.model, self.loss_cfg, online,
                                         with_lc_embedding=self.do_loop_closures)
+        if (self.use_expert and self.replay_buffer is not None
+                and len(self.replay_buffer) > 0 and step_id % self.generalist_interval == 0):
+            self._consolidate_generalist()
         entry = {"kind": "full", "step_id": step_id, "sample": sample,
                  "losses": losses, "outputs": outputs}
         self._start_host_copies(entry)
         return entry
+
+    def _consolidate_generalist(self) -> None:
+        """The generalist's update on a replay-only batch, drawn after the
+        frame's own draws and padded to `batch_size`."""
+        draws = self.replay_buffer.get(current_index=None)
+        if not draws:
+            return
+        replay = make_frame_batch(
+            np.stack([d.rgb for d in draws]),
+            np.stack([d.K for d in draws]),
+            np.stack([d.rel_dist for d in draws]),
+            rgb_aug=np.stack([d.aug for d in draws]),
+            device=self.device,
+        )
+        consolidate_step(self.generalist_state, self.loss_cfg,
+                         pad_batch(replay, self.batch_size), num_steps=self.generalist_steps)
+
+    def _update_done(self) -> bool:
+        event = self._pending[1]
+        return event is None or event.query()
+
+    def _adopt(self) -> None:
+        """Serve with the pending update's state from here on.  The current
+        stream waits on the update's event; the new state's own tensors were
+        made on the side stream and are recorded on the current one, so
+        that the allocator keeps their memory until the current stream's
+        work on them is done once the state is dropped (its encoders are
+        the shared ones)."""
+        state, event = self._pending
+        if event is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(event)
+            for t in train_state_tensors(state):
+                if t.is_cuda:
+                    t.record_stream(current)
+        self.state = state
+        self._pending = None
+        self.async_updates_adopted += 1
+
+    def finish_async(self) -> None:
+        """Retire every queued frame, then wait for the update in flight and
+        adopt it."""
+        self.flush_pipeline()
+        if self._pending is not None:
+            if self._pending[1] is not None:
+                self._pending[1].synchronize()
+            self._adopt()
+
+    def reset_expert_from_generalist(self) -> None:
+        """Start the expert anew from the generalist's weights, with a fresh
+        optimizer and generator: the CL-SLAM move when entering a
+        (re)visited environment."""
+        if self.generalist_state is None:
+            raise RuntimeError("dual-network mode is not enabled (use_expert)")
+        self.state = self._fresh_state(clone_train_state(self.generalist_state).model)
 
     def _start_host_copies(self, entry: Dict) -> None:
         """Copy every tensor `_retire` reads to the host, without blocking
@@ -353,6 +471,15 @@ class Slam:
                     host["depth"].numpy(), sample.depth,
                     min_depth=self.loss_cfg.min_depth, max_depth=self.loss_cfg.max_depth,
                 ))
+        # periodic visual checkpoints, as the reference draws them
+        if self.logging and self.plot_frequency > 0 and step_id % self.plot_frequency == 0:
+            try:
+                self.plot_trajectory(self.log_path / f"trajectory_{step_id}.png")
+                self.plot_metrics(self.log_path / f"metrics_{step_id}.png")
+                self.pose_graph.visualize_in_meshlab(
+                    self.log_path / f"pose_graph_{step_id}.obj", verbose=False)
+            except Exception as e:  # plotting must never kill the run
+                print(f"periodic plotting skipped: {e}")
         return losses_out
 
     def _close_loops(self, step_id: int, sample: Sample) -> bool:
@@ -419,7 +546,7 @@ class Slam:
         """Drive the loop with worker threads that prepare up to
         `prefetch_depth` frames ahead of the device, consumed in order.
         The workers only make numpy samples; every tensor is made in this
-        thread.  Ends with `flush_pipeline`."""
+        thread.  Ends with `finish_async`."""
         n = len(self) if max_steps is None else min(max_steps, len(self))
         depth = max(1, prefetch_depth)
         with ThreadPoolExecutor(max_workers=max(1, prefetch_workers)) as pool:
@@ -436,7 +563,7 @@ class Slam:
                 if progress and self.current_step % 25 == 0:
                     print(f"step {self.current_step}/{n} loss={losses.get('loss', 0):.4f} "
                           f"({1.0 / max(np.mean(self.step_times[-25:]), 1e-9):.1f} fps)")
-        self.flush_pipeline()
+        self.finish_async()
         return self
 
     def flush_pipeline(self) -> None:
@@ -464,6 +591,27 @@ class Slam:
         with open(path, "wb") as f:
             pickle.dump(data, f)
         return path
+
+    def plot_trajectory(self, filename=None):
+        """Top-down predicted-vs-ground-truth trajectory PNG (+ .npy dumps)."""
+        from tpuslam_torch.viz.plots import plot_trajectory
+
+        return plot_trajectory(
+            self, filename or self.log_path / f"trajectory_{self.current_step}.png")
+
+    def plot_metrics(self, filename=None):
+        """Metric panel PNG (losses, relative errors, depth metrics)."""
+        from tpuslam_torch.viz.plots import plot_metrics
+
+        return plot_metrics(self, filename or self.log_path / f"metrics_{self.current_step}.png")
+
+    def save_model(self) -> None:
+        """The serving networks as checkpoint epoch 0 under `log_path`, and
+        the replay buffer's state where it has a folder."""
+        save_checkpoint(self.log_path, epoch=0, model=self.state.model,
+                        meta={"step": int(self.state.step)})
+        if self.replay_buffer is not None and self.replay_buffer.storage_dir:
+            self.replay_buffer.save_state()
 
     def final_report(self) -> str:
         self.flush_pipeline()

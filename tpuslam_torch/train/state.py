@@ -8,8 +8,9 @@ rounding.  The optimizer updates the parameters in place.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -45,3 +46,29 @@ def make_train_state(
         device = next(model.parameters()).device
         rng = torch.Generator(device=device).manual_seed(seed)
     return TrainState(model=model, optimizer=optimizer, rng=rng)
+
+
+def clone_train_state(state: TrainState) -> TrainState:
+    """A copy of `state` that can be updated without touching it: the
+    decoders, the Adam state and the tie-break generator are copied (the
+    clone's optimizer holds the clone's parameters).  The frozen encoders
+    are shared with `state`, because nothing writes them."""
+    src = state.model
+    memo = {id(src.depth_encoder): src.depth_encoder, id(src.pose_encoder): src.pose_encoder}
+    model, optimizer = copy.deepcopy((src, state.optimizer), memo)
+    rng = None
+    if state.rng is not None:
+        rng = torch.Generator(device=state.rng.device)
+        rng.set_state(state.rng.get_state())
+    return TrainState(model=model, optimizer=optimizer, rng=rng, step=state.step)
+
+
+def train_state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """The tensors `clone_train_state` copies: the decoders' parameters,
+    buffers and gradients, and the optimizer's state."""
+    decoders = (state.model.depth_decoder, state.model.pose_decoder)
+    out = [t for m in decoders for t in (*m.parameters(), *m.buffers())]
+    out += [p.grad for m in decoders for p in m.parameters() if p.grad is not None]
+    out += [v for st in state.optimizer.state.values() for v in st.values()
+            if isinstance(v, torch.Tensor)]
+    return out

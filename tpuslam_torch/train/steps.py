@@ -17,6 +17,7 @@ losses always run in float32, and TF32 is off inside every entry point
 """
 from __future__ import annotations
 
+import dataclasses
 from contextlib import nullcontext
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -38,7 +39,7 @@ from tpuslam_torch.models.depth_pose import DepthPoseNet, l2_normalize
 from tpuslam_torch.ops.reproj import reproj_err, warp_reproj_err, warp_reproj_err_proj
 from tpuslam_torch.ops.warp import warp, warp_tall, warp_tall_proj, warp_two_kernel
 from tpuslam_torch.train.batch import FrameBatch
-from tpuslam_torch.train.state import TrainState
+from tpuslam_torch.train.state import TrainState, clone_train_state, train_state_tensors
 
 
 class LossConfig(NamedTuple):
@@ -316,11 +317,13 @@ def embed(model: DepthPoseNet, image: torch.Tensor, cfg: LossConfig) -> torch.Te
     return l2_normalize(feat.mean((2, 3)))
 
 
-def _adapt_scan(state: TrainState, cfg: LossConfig, training: FrameBatch, num_steps: int):
+def _adapt_scan(state: TrainState, cfg: LossConfig, training: FrameBatch, num_steps: int,
+                with_outputs: bool = True):
     """K iterations of decode -> warp and loss -> backward -> Adam.
 
     Returns (last losses, last outputs without the warped images, per-
-    iteration losses (K,), pooled stage-4 feature of the frozen encoder)."""
+    iteration losses (K,), pooled stage-4 feature of the frozen encoder);
+    with `with_outputs=False` the losses and outputs are empty dicts."""
     if num_steps < 1:
         raise ValueError(f"adaptation requires num_steps >= 1, got {num_steps}")
     model, opt = state.model, state.optimizer
@@ -344,6 +347,8 @@ def _adapt_scan(state: TrainState, cfg: LossConfig, training: FrameBatch, num_st
         losses["loss"].backward()
         opt.step()
         iter_losses.append(losses["loss"].detach())
+    if not with_outputs:
+        return {}, {}, torch.stack(iter_losses), feat4
     losses = {k: v.detach() for k, v in losses.items()}
     outputs = {k: v.detach() for k, v in outputs.items() if k[0] != "rgb"}
     return losses, outputs, torch.stack(iter_losses), feat4
@@ -389,6 +394,53 @@ def adapt_step(
     losses["iter_losses"] = iter_losses
     state.step += 1
     return losses, outputs
+
+
+@full_fp32()
+def consolidate_step(state: TrainState, cfg: LossConfig, batch: FrameBatch, num_steps: int,
+                     freeze_encoder: bool = True) -> torch.Tensor:
+    """Update-only step, in place: K adaptation iterations over the
+    decoders with no outputs for the host (the generalist's replay
+    consolidation in dual-network mode, and the CoVIO update).  Returns the
+    per-iteration losses (K,)."""
+    if not freeze_encoder:
+        raise NotImplementedError(
+            "consolidate_step(freeze_encoder=False) trains the encoders, the training path "
+            "that is not ported to tpuslam_torch yet (ROADMAP.md Queue 1)")
+    _, _, iter_losses, _ = _adapt_scan(state, cfg, batch, num_steps, with_outputs=False)
+    state.step += 1
+    return iter_losses
+
+
+def consolidate_step_async(state: TrainState, cfg: LossConfig, batch: FrameBatch,
+                           num_steps: int, stream: Optional[torch.cuda.Stream] = None,
+                           freeze_encoder: bool = True):
+    """`consolidate_step` on a clone of `state`, which stays untouched and
+    can go on serving while the update runs (the CoVIO update).
+
+    On the card the clone is made and updated on `stream`, after that
+    stream has waited for the work queued so far on the current one (the
+    batch's copies).  The batch's tensors and the source state's are
+    recorded on `stream`, so that the allocator does not hand their memory
+    to another stream while the update reads it.  Returns (clone, event recorded on `stream` after the
+    update's last operation); the caller makes its stream wait on the event
+    before it reads the clone.  Without a stream (the CPU) the update runs
+    synchronously and the event is None."""
+    if stream is None:
+        clone = clone_train_state(state)
+        consolidate_step(clone, cfg, batch, num_steps, freeze_encoder)
+        return clone, None
+    stream.wait_stream(torch.cuda.current_stream())
+    read = [getattr(batch, field.name) for field in dataclasses.fields(batch)]
+    for t in read + train_state_tensors(state):
+        if t.is_cuda:
+            t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        clone = clone_train_state(state)
+        consolidate_step(clone, cfg, batch, num_steps, freeze_encoder)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return clone, event
 
 
 @torch.no_grad()
