@@ -65,7 +65,18 @@ Phases, each printing lines tagged with its name and raising on failure
     two runs on one stream), the serving state unchanged bit for bit, and a
     serving `eval_step` issued before the update's event is waited on equal
     to one issued after it;
-17. kernels: every kernel (K1 with and without taps, K2's forward and
+17. pretrain: `Pretrainer` at 192 x 640, ResNet-18, batch 18, on the K1a
+    route (`pallas_warp=True`) and on the plain sampler: an epoch of 5
+    `train_step`s (the whole network, batch norm in train mode) and a
+    `validate` over 2 batches (5 K1a launches on N = 2*S*B = 144 images and
+    2 K1b; none on the plain route), then the steady ms/step of 5 more
+    steps, 3 steps under torch.profiler and the peak memory of each route;
+18. cli pretrain: `tpuslam_torch.cli.pretrain` on
+    `pretrain_collapse_synthetic_192.yaml` for 2 epochs (12 of its 64
+    frames), with no kernel launch (it runs the plain sampler), its
+    `weights_*` folders and models/best.yaml, then one more epoch resumed
+    through `Pretrainer.load`;
+19. kernels: every kernel (K1 with and without taps, K2's forward and
     backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it (the error-map
@@ -78,10 +89,12 @@ Phases, each printing lines tagged with its name and raising on failure
     without taps (K2's forward on the eval path too) and the backward
     gathers, torch's grid_sample forward and backward (K3 and K3' are K2
     with exact taps, `warp_dynamic`: no path calls them, and their rows
-    carry K2's numbers);
-18. reference: one adaptation step on the card and on the CPU at a small
+    carry K2's numbers); K1a and K1b also on the pretrain path's inputs,
+    each a row of its own;
+20. reference: one adaptation step on the card and on the CPU at a small
     size, with the K1 path, the fused stack, the two-kernel path and the
-    packed variant (and the K1 path again at their size), which must agree.
+    packed variant (and the K1 path again at their size), and one
+    `train_step` on the K1a route and on the plain one, which must agree.
 
 During every path each plain version refuses CUDA tensors, and the
 kernels' launch counts are set to 0 just before the path and read just
@@ -1063,13 +1076,152 @@ def phase_cli_adapt(torch, wp, rp, main_slam, log_dir: Path, captured: dict, car
         f"launches { {k: v for k, v in launches.items() if v} }, {ate}, plotting {plots} [{card}]")
 
 
+PRETRAIN_B = 18  # the pretrainer's default batch
+N_PRETRAIN = 2 * S * PRETRAIN_B  # images per warp in train_step: 144
+PRETRAIN_POOL = 24  # distinct synthetic frames the pretrain splits cycle over
+CLI_PRETRAIN_FRAMES = 12  # pretrain_collapse_synthetic_192.yaml's 64 frames, cut
+
+
+def pretrain_split(pool, n: int):
+    """n samples cycling over the pool (a list is a Sample dataset)."""
+    return [pool[i % len(pool)] for i in range(n)]
+
+
+def phase_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict:
+    """`Pretrainer` at 192 x 640, ResNet-18, batch 18 (its defaults), on the
+    K1a route (`pallas_warp=True`) and the plain sampler: one epoch of 5
+    `train_step`s and a `validate` over 2 batches, whose launches must be 5
+    K1a (N = 144) and 2 K1b on the K1a route and none on the plain one; then
+    a second epoch of 5 steps timed (host clock, ended by the epoch's loss
+    read: steady ms/step), and a third of 3 steps under torch.profiler.
+    The splits cycle over 24 synthetic frames, made once."""
+    from tpuslam_torch.data.synthetic import SyntheticDataset
+    from tpuslam_torch.train.pretrain import Pretrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    world = SyntheticDataset(num_frames=PRETRAIN_POOL, height=H, width=W, do_augmentation=True)
+    pool = [world[i] for i in range(len(world))]
+    out = {}
+    for route, pallas in (("K1a route", True), ("plain route", False)):
+        phase = f"pretrain, {route}"
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        trainer = Pretrainer(height=H, width=W, batch_size=PRETRAIN_B, pallas_warp=pallas,
+                             log_path=log_dir / "pretrain", device="cuda")
+        reset_launches(wp, rp)
+        t0 = time.perf_counter()
+        with PathGuard(wp, rp, captured if pallas else {}):
+            loss = trainer.train_epoch(pretrain_split(pool, 5 * PRETRAIN_B), progress=False)
+            val = trainer.validate(pretrain_split(pool, 2 * PRETRAIN_B))
+        first_s = time.perf_counter() - t0
+        launches = read_launches(wp, rp)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        if not (math.isfinite(loss) and math.isfinite(val)):
+            raise AssertionError(f"{phase}: loss {loss}, validation loss {val}")
+        expect_launches(phase, launches,
+                        {"warp_static_fused": 5, "warp_static": 2} if pallas else {})
+        t0 = time.perf_counter()
+        trainer.train_epoch(pretrain_split(pool, 5 * PRETRAIN_B), progress=False)
+        ms = 1e3 * (time.perf_counter() - t0) / 5
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_epoch(pretrain_split(pool, 3 * PRETRAIN_B), progress=False)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / 3
+        spans, by_name, busy_us = device_busy(prof)
+        busy_ms = busy_us / 1e3 / 3
+        idle = f"{1 - busy_ms / wall_ms:.3f}" if busy_ms > 0 else "not measured"
+        out[route] = dict(ms=ms, wall_ms=wall_ms, busy_ms=busy_ms, peak=peak, launches=launches)
+        top = ", ".join(f"{n[:50]} {us / 1e3 / 3:.3f}" for n, us in by_name.most_common(6))
+        log(phase, f"epoch of 5 steps + validate (2 batches) in {first_s:.2f} s, loss "
+            f"{loss:.5f}, validation loss {val:.5f}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }; steady {ms:.2f} ms/step (host "
+            f"clock, 5 steps, batch prep included); profiled 3 steps: wall {wall_ms:.2f} "
+            f"ms/step, device busy {busy_ms:.2f} ms/step, idle share {idle}, "
+            f"{len(spans) / 3:.0f} device activities/step; peak memory {peak:.2f} GiB above "
+            f"the {held / 2 ** 30:.2f} GiB held before [{card}]")
+        log(phase, f"top device time, ms/step: {top}")
+        del trainer, prof
+        torch.cuda.empty_cache()
+    a, b = out["K1a route"], out["plain route"]
+    log("pretrain", f"K1a route / plain route, same call: steady {a['ms']:.2f} / {b['ms']:.2f} "
+        f"ms/step; device busy {a['busy_ms']:.2f} / {b['busy_ms']:.2f} ms/step; peak memory "
+        f"{a['peak']:.2f} / {b['peak']:.2f} GiB [{card}]")
+    return out["K1a route"]["launches"]
+
+
+def phase_cli_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> None:
+    """`tpuslam_torch.cli.pretrain --config pretrain_collapse_synthetic_192.yaml
+    --epochs 2`, called in this process (so that the launches can be read),
+    with `num_frames` cut from 64 to 12 and `log_path` in the run's
+    directory: the plain sampler (no launch of the port's kernels), the
+    `weights_*` folders and models/best.yaml; then a `Pretrainer` built from
+    the same YAML resumes through `load` and trains one more epoch."""
+    import yaml
+
+    from tpuslam_torch.cli import pretrain
+    from tpuslam_torch.config import parse_config
+
+    cfg = yaml.safe_load(
+        (ROOT / "tpuslam_torch/config/defaults/pretrain_collapse_synthetic_192.yaml").read_text())
+    out = log_dir / "cli_pretrain"
+    cfg["Dataset"]["num_frames"] = CLI_PRETRAIN_FRAMES
+    cfg["DepthPosePrediction"]["log_path"] = str(out)
+    path = log_dir / "pretrain_collapse_synthetic_192.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    reset_launches(wp, rp)
+    t0 = time.perf_counter()
+    with PathGuard(wp, rp, captured):
+        rc = pretrain.main(["--config", str(path), "--epochs", "2"])
+    wall = time.perf_counter() - t0
+    expect_launches("cli pretrain", read_launches(wp, rp), {})
+    models = out / "models"
+    best = yaml.safe_load((models / "best.yaml").read_text()) if (models / "best.yaml").exists() \
+        else None
+    if rc != 0 or not (models / "weights_002" / "model.pt").exists() or best is None:
+        raise AssertionError(f"cli pretrain: rc {rc}, folders "
+                             f"{sorted(p.name for p in models.glob('*'))}, best {best}")
+    parsed = parse_config(path)
+    trainer = pretrain.make_pretrainer(parsed, "cuda").load()
+    if trainer.epoch != 2:
+        raise AssertionError(f"cli pretrain: resumed at epoch {trainer.epoch}")
+    loss = trainer.train_epoch(pretrain.build_dataset(parsed, "train"), progress=False)
+    folder = trainer.save()
+    if not (math.isfinite(loss) and folder.name == "weights_003"):
+        raise AssertionError(f"cli pretrain: resumed epoch loss {loss}, saved {folder}")
+    log("cli pretrain", f"cli.pretrain --epochs 2 ({CLI_PRETRAIN_FRAMES} of the YAML's 64 "
+        f"frames, batch 3) in {wall:.2f} s with no kernel launch (plain sampler): "
+        f"{sorted(p.name for p in models.glob('weights_*'))}, best {best}; resumed at "
+        f"epoch 2 through Pretrainer.load, epoch 3 loss {loss:.5f} [{card}]")
+
+
+def device_busy(prof):
+    """The device activities of a torch.profiler trace: their (start, end)
+    spans, their time by name (us), and the union of the spans (busy us)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    by_name = Counter()
+    for e in events:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return spans, by_name, busy_us
+
+
 def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
     """Where a frame's time goes: host time making the synthetic frame,
     the rest of `Slam.step`, and the device's busy time (union of the
     kernel and copy intervals that torch.profiler records) by kernel."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     data_s = 0.0
@@ -1083,17 +1235,7 @@ def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
             slam.step(sample)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    by_name = Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.end - e.time_range.start
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
+    spans, by_name, busy_us = device_busy(prof)
     wall_ms, busy_ms = 1e3 * wall_s / frames, busy_us / 1e3 / frames
     if busy_ms <= 0.0:
         log(phase, f"{wall_ms:.2f} ms/frame wall; device time not measured "
@@ -1149,6 +1291,81 @@ def phase_reference(torch, log_dir: Path, tag: str, height=64, width=192, **pc):
         raise AssertionError(f"adapt_step ({tag}) card vs CPU: relative error {rel} > 1e-3")
     log("reference", f"adapt_step ({tag}) {height}x{width} K=2 float32, card vs CPU packed "
         f"readback: relative error {rel:.3g}")
+
+
+def phase_reference_train(torch, tag: str, use_pallas_warp: bool) -> None:
+    """One `train_step` (batch norm in train mode, every parameter) on the
+    card, on the CPU and on the CPU in float64 (the plain sampler: the
+    kernels take float32 only) from the same weights and batch, at 64 x 384,
+    batch 2, noise off.  The card must agree with the float64 step within
+    1e-3 relative on the losses and the running statistics after the step,
+    and within 3e-3 on all gradients as one vector: in the deep layers batch
+    norm over few values per channel amplifies float32 rounding, and the
+    card's gradient read 9.3e-4 from float64 here (its pose encoder's 1.2e-3)
+    where the CPU's float32 one is 1.3e-2 away (PERF.md).  The float32
+    CPU step is logged beside it."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpuslam_torch.data.synthetic import SyntheticDataset
+    from tpuslam_torch.models.depth_pose import init_depth_pose
+    from tpuslam_torch.train.batch import make_frame_batch
+    from tpuslam_torch.train.state import make_pretrain_optimizer, make_train_state
+    from tpuslam_torch.train.steps import LossConfig, train_step
+
+    height, width = 64, 384
+    ds = SyntheticDataset(num_frames=3, height=height, width=width, do_augmentation=True)
+    samples = [ds[i] for i in range(2)]
+    cfg = LossConfig(use_pallas_warp=use_pallas_warp, pallas_bf16_out=False,
+                     bf16_networks=False)
+    got = {}
+    for run, dev in (("card", "cuda"), ("cpu", "cpu"), ("cpu64", "cpu")):
+        model = init_depth_pose(0, device=dev)
+        batch = make_frame_batch(np.stack([s.rgb for s in samples]), ds.K,
+                                 np.stack([s.rel_dist for s in samples]),
+                                 rgb_aug=np.stack([s.aug for s in samples]), device=dev)
+        step_cfg = cfg
+        if run == "cpu64":
+            model = model.double()
+            batch = dataclasses.replace(
+                batch, rgb=batch.rgb.double() / 255, rgb_aug=batch.rgb_aug.double() / 255,
+                K=batch.K.double(), inv_K=batch.inv_K.double(),
+                rel_dist=batch.rel_dist.double(), weights=batch.weights.double())
+            step_cfg = cfg._replace(use_pallas_warp=False)
+        state = make_train_state(model, make_pretrain_optimizer(model, 1e-4), seed=None)
+        losses = train_step(state, step_cfg, batch)
+        got[run] = dict(
+            losses=np.array([float(losses[k]) for k in sorted(losses)]),
+            grads={k: (torch.zeros_like(p) if p.grad is None else p.grad).double().cpu().numpy()
+                   for k, p in model.named_parameters()},
+            stats=np.concatenate([v.double().cpu().numpy().ravel()
+                                  for k, v in model.state_dict().items() if "running" in k]))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def cat(grads, prefix=""):
+        return np.concatenate([g.ravel() for k, g in grads.items() if k.startswith(prefix)])
+
+    def errors(a, b):
+        return dict(losses=rel(a["losses"], b["losses"]),
+                    grads=rel(cat(a["grads"]), cat(b["grads"])),
+                    stats=rel(a["stats"], b["stats"]),
+                    **{n: rel(cat(a["grads"], n), cat(b["grads"], n))
+                       for n in ("depth_encoder", "pose_encoder", "depth_decoder",
+                                 "pose_decoder")})
+
+    card = errors(got["card"], got["cpu64"])
+    cpu = errors(got["cpu"], got["cpu64"])
+    both = errors(got["card"], got["cpu"])
+    finite = all(np.isfinite(v).all() for v in got["card"].values() if isinstance(v, np.ndarray))
+    if not (finite and max(card["losses"], card["stats"]) <= 1e-3 and card["grads"] <= 3e-3):
+        raise AssertionError(f"train_step ({tag}) card vs float64: {card}")
+    for name, err in (("card vs CPU float64", card), ("CPU float32 vs float64", cpu),
+                      ("card vs CPU float32", both)):
+        log("reference", f"train_step ({tag}) {height}x{width} batch 2, {name}: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -1224,6 +1441,14 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
     if {k: tuple(v) for k, v in shapes.items()} != want:
         raise AssertionError(f"kernel inputs of the paths: {shapes}")
 
+    # the pretrain path: K1a under train_step, K1b in validate, both bf16
+    k1p, k1pv = cap["pretrain"]["warp_static_fused"], cap["pretrain"]["warp_static"]
+    if ([tuple(k[0].shape) for k in (k1p, k1pv)] != [(N_PRETRAIN, H, W, C)] * 2
+            or (k1p[2], k1pv[2:]) != (True, (True,))):
+        raise AssertionError(f"pretrain inputs: {[tuple(k[0].shape) for k in (k1p, k1pv)]}, "
+                             f"flags {k1p[2:]}, {k1pv[2:]}")
+    e1p = [check_k1(torch, wp, *k1p[:2], f"the pretrain path's inputs (N = {N_PRETRAIN})"),
+           check_k1(torch, wp, *k1pv[:2], f"the pretrain validate's inputs (N = {N_PRETRAIN})")]
     e1 = [check_k1(torch, wp, *warp_inputs(dev, N_MAIN), "adversarial coords"),
           check_k1(torch, wp, *warp_inputs(dev, N_EVAL), "adversarial coords"),
           check_k1(torch, wp, *k1a[:2], "the main path's inputs"),
@@ -1258,11 +1483,13 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
 
     res = {}
     n_pix = N_MAIN * H * W
-    for name, taps, bf16, (src, coords) in (
-        ("warp_static_fused", True, True, k1a[:2]),
-        ("warp_static_fused_f32", True, False, k1a[:2]),
-        ("warp_static", False, True, k1b[:2]),
-        ("warp_static_f32", False, False, k1b[:2]),
+    for name, taps, bf16, (src, coords), errs in (
+        ("warp_static_fused", True, True, k1a[:2], e1),
+        ("warp_static_fused_f32", True, False, k1a[:2], e1),
+        ("warp_static", False, True, k1b[:2], e1),
+        ("warp_static_f32", False, False, k1b[:2], e1),
+        ("warp_static_fused_pretrain", True, True, k1p[:2], e1p),
+        ("warp_static_pretrain", False, True, k1pv[:2], e1p),
     ):
         fn = wp.warp_static_fused if taps else wp.warp_static
         plain = wp.warp_static_fused_plain if taps else wp.bilinear_sampler
@@ -1273,7 +1500,7 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
             torch, card, name, lambda: fn(src, coords, bf16), lambda: plain(src, coords),
             "warp_kernel", (src, coords), outs,
             coords.shape[0] * H * W * ((10 + 22 * C) if taps else (10 + 9 * C)),
-            worst(e1, [key]), None if taps else _grid_sample_ms(torch, src, coords))
+            worst(errs, [key]), None if taps else _grid_sample_ms(torch, src, coords))
 
     src2, coords, n_s, bf16 = k4
     outs = wp.warp_tall_taps(src2, coords, n_s, bf16)
@@ -1474,6 +1701,9 @@ def main() -> int:
         phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card, k1_ms)
         phase_rungs(torch, wp, rp, log_dir, cap.setdefault("rungs", {}), card)
         phase_async_check(torch, log_dir, card)
+        pretrain_launches = phase_pretrain(torch, wp, rp, log_dir, cap.setdefault("pretrain", {}),
+                                           card)
+        phase_cli_pretrain(torch, wp, rp, log_dir, cap.setdefault("cli pretrain", {}), card)
         results = phase_kernels(torch, wp, rp, cap, card)
         cap.clear()
         phase_reference(torch, log_dir, "K1 path")
@@ -1483,17 +1713,24 @@ def main() -> int:
         phase_reference(torch, log_dir, "K1 path", 64, 384)
         phase_reference(torch, log_dir, "two-kernel path", 64, 384, pallas_fused_grad=False)
         phase_reference(torch, log_dir, "packed", 64, 384, pallas_packed=True)
+        phase_reference_train(torch, "K1a route", True)
+        phase_reference_train(torch, "plain route", False)
 
     warp_src, err_src = "tpuslam_torch/csrc/warp.cu", "tpuslam_torch/csrc/reproj.cu"
     # (name, source, TPU kernel, launches on its path, counter, timing):
     # K1b and K2's forward are one launch without taps, one counter; K3 and
     # K3' are K2 with exact taps (no path calls pallas_warp), so their rows
-    # carry K2's launches and times
+    # carry K2's launches and times; K1a and K1b have a second row each on
+    # the pretrain path (N = 144)
     kernels = [
         ("warp_static_fused", warp_src, "tpuslam/ops/pallas_warp.py:1244", k1_launches,
          "warp_static_fused", "warp_static_fused"),
         ("warp_static", warp_src, "tpuslam/ops/pallas_warp.py:745", eval_launches,
          "warp_static", "warp_static"),
+        ("warp_static_fused_pretrain", warp_src, "tpuslam/ops/pallas_warp.py:1244",
+         pretrain_launches, "warp_static_fused", "warp_static_fused_pretrain"),
+        ("warp_static_pretrain", warp_src, "tpuslam/ops/pallas_warp.py:745", pretrain_launches,
+         "warp_static", "warp_static_pretrain"),
         ("warp_static_k2", warp_src, "tpuslam/ops/pallas_warp.py:745", two_launches,
          "warp_static", "warp_static_k2"),
         ("warp_static_k2_trunc", warp_src, "tpuslam/ops/pallas_warp.py:745", packed_launches,

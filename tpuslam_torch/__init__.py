@@ -23,6 +23,13 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32 when it comes in a narrower float type (the bf16
+    outputs of autocast); float32 and float64 pass unchanged, so that the
+    networks and the geometry follow a float64 input."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
 @contextmanager
 def full_fp32():
     """Run float32 matmuls and convolutions in full float32 (TF32 off), and

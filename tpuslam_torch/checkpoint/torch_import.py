@@ -1,0 +1,73 @@
+"""ImageNet initialisation of the encoders from a local torchvision ResNet.
+
+Counterpart of `tpuslam/checkpoint/torch_import.py::load_imagenet_encoders`
+and `init_encoders_from_imagenet`.  The reference starts pretraining from
+encoders built with `pretrained=True`: one torchvision ResNet checkpoint
+initialises both encoders, the depth encoder as it is and the 2-image pose
+encoder with its stem `conv1` repeated over the stacked input channels and
+divided by 2, so that activations keep their single-image magnitude.  The
+classifier (`fc.*`) is dropped.  The port's encoders carry torchvision's key
+names under `resnet.`, so the state dict loads without renaming.
+
+Only a local `.pth` is read (torchvision is not needed, nothing is
+downloaded).  Reference `weights_NNN/` folders load through
+`DepthPosePrediction.load_reference_checkpoint`.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from tpuslam_torch.models.depth_pose import DepthPoseNet
+
+MISSING_WEIGHTS = (
+    "resnet_pretrained=True requires encoder_weights pointing at a local torchvision "
+    "ResNet .pth (this environment has no network egress to download ImageNet weights)"
+)
+
+
+def imagenet_encoder_state(state: Dict[str, torch.Tensor],
+                           num_input_images: int = 1) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet state dict -> the state dict of one
+    `ResNetEncoder` (`resnet.`-prefixed, no `fc.*`), its stem repeated over
+    `num_input_images` stacked images and divided by their count."""
+    if "state_dict" in state:
+        state = state["state_dict"]
+    out = {f"resnet.{k}": v.detach().float() for k, v in state.items()
+           if not k.startswith("fc.")}
+    if num_input_images > 1:
+        conv1 = out["resnet.conv1.weight"]  # OIHW: input channels on axis 1
+        out["resnet.conv1.weight"] = torch.cat([conv1] * num_input_images, 1) / num_input_images
+    return out
+
+
+def load_imagenet_encoders(model: DepthPoseNet, path: Path) -> None:
+    """Load a torchvision ResNet `.pth` into both encoders of `model`, in
+    place.  A stem whose shape does not fit raises ValueError."""
+    state = torch.load(Path(path), map_location="cpu", weights_only=True)
+    for net, images in (("depth_encoder", 1), ("pose_encoder", 2)):
+        encoder = getattr(model, net)
+        saved = imagenet_encoder_state(state, images)
+        have = tuple(encoder.resnet.conv1.weight.shape)
+        got = tuple(saved["resnet.conv1.weight"].shape)
+        if have != got:
+            raise ValueError(f"{net} conv1 shape mismatch: model {have} vs checkpoint {got} "
+                             "— wrong ResNet depth or stem width?")
+        current = encoder.state_dict()
+        # torchvision checkpoints before v0.4 lack num_batches_tracked
+        saved.update({k: v for k, v in current.items()
+                      if k.endswith("num_batches_tracked") and k not in saved})
+        encoder.load_state_dict(saved)
+
+
+def init_encoders_from_imagenet(model: DepthPoseNet, encoder_weights: Optional[Path],
+                                required: bool = False) -> None:
+    """ImageNet encoders from `encoder_weights`; without a file a no-op,
+    unless `required` (the `resnet_pretrained` option), which raises."""
+    if encoder_weights is None:
+        if required:
+            raise FileNotFoundError(MISSING_WEIGHTS)
+        return
+    load_imagenet_encoders(model, encoder_weights)

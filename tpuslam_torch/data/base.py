@@ -9,8 +9,11 @@ only decodes, resizes to the working resolution, and color-jitters.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+from collections import OrderedDict
 from pathlib import Path
-from typing import Callable, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -59,12 +62,53 @@ def load_image(path: Path, height: int, width: int) -> np.ndarray:
     return np.asarray(img, dtype=np.float32) / 255.0
 
 
+class ImageCache:
+    """Small thread-safe LRU over decoded frames at the working resolution.
+
+    The SLAM loop reads sliding (-1, 0, +1) windows, so consecutive
+    `dataset[i]` calls would decode two of their three source images again;
+    with the cache about one decode and LANCZOS resize is left per frame.
+    Returned arrays are shared: callers treat them as read-only (every
+    consumer stacks or copies)."""
+
+    def __init__(self, capacity: int = 8):
+        self._cap = capacity
+        self._lock = threading.Lock()
+        self._store = OrderedDict()
+
+    def load(self, path: Path, height: int, width: int) -> np.ndarray:
+        key = (str(path), height, width)
+        with self._lock:
+            img = self._store.get(key)
+            if img is not None:
+                self._store.move_to_end(key)
+                return img
+        img = load_image(path, height, width)
+        with self._lock:
+            self._store[key] = img
+            while len(self._store) > self._cap:
+                self._store.popitem(last=False)
+        return img
+
+
 def scale_intrinsics(K_normalized: np.ndarray, height: int, width: int) -> np.ndarray:
     """Normalised intrinsics -> pixel units (reference datasets/utils.py:104-110)."""
     K = np.asarray(K_normalized, np.float32).copy()
     K[0, :] *= width
     K[1, :] *= height
     return K
+
+
+def flip_sample_arrays(rgb, rgb_aug=None, mask=None):
+    """Horizontal flip of a frame triplet (+aug, +mask), the reference's
+    do_flip augmentation (datasets/utils.py:148-151, kitti.py:252-253).
+    Monodepth2 assumes a centred principal point, so intrinsics are kept."""
+    rgb = rgb[..., ::-1, :].copy()
+    if rgb_aug is not None:
+        rgb_aug = rgb_aug[..., ::-1, :].copy()
+    if mask is not None:
+        mask = mask[..., ::-1].copy()
+    return rgb, rgb_aug, mask
 
 
 # ---------------------------------------------------------------------------
@@ -149,3 +193,38 @@ def random_color_jitter(
         return img
 
     return apply
+
+
+# ---------------------------------------------------------------------------
+# Prefetching iterator: overlap host decode with device compute.
+
+
+class Prefetcher:
+    """Background-thread prefetch (double buffering) over any iterator.
+
+    One thread that stays `depth` items ahead of the consumer; the items are
+    host (numpy) work only, so the thread never touches the device."""
+
+    _SENTINEL = object()
+
+    def __init__(self, iterator: Iterator, depth: int = 2):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._iterator = iterator
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        try:
+            for item in self._iterator:
+                self._queue.put(item)
+        finally:
+            self._queue.put(self._SENTINEL)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is self._SENTINEL:
+            raise StopIteration
+        return item

@@ -18,6 +18,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from tpuslam_torch import full_fp32
+
 
 def pixel_grid(height: int, width: int, device=None, dtype=torch.float32) -> torch.Tensor:
     """Homogeneous pixel grid (3, H*W): rows are (x, y, 1)."""
@@ -72,6 +74,14 @@ def projection_affine(K: torch.Tensor, inv_K: torch.Tensor, T: torch.Tensor) -> 
     P = torch.matmul(K, T)[:, :3, :]  # (B, 3, 4)
     A = torch.matmul(P[:, :, :3], inv_K[:, :3, :3])
     return torch.cat([A.reshape(K.shape[0], 9), P[:, :, 3]], dim=1)
+
+
+def normalize_pixel_coords(coords: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Pixel coords (B, H, W, 2) -> the [-1, 1] grid of grid_sample
+    (align_corners=True)."""
+    x = coords[..., 0] / (width - 1)
+    y = coords[..., 1] / (height - 1)
+    return torch.stack([(x - 0.5) * 2.0, (y - 0.5) * 2.0], dim=-1)
 
 
 def _clip(v: torch.Tensor, hi: float) -> torch.Tensor:
@@ -155,3 +165,16 @@ def scale_camera_matrix(camera_matrix, height: int, width: int):
     K[0, :] *= width
     K[1, :] *= height
     return K, torch.linalg.inv(K)
+
+
+@full_fp32()
+def warp_frame(src: torch.Tensor, depth: torch.Tensor, K: torch.Tensor, inv_K: torch.Tensor,
+               T: torch.Tensor, *, height: int, width: int) -> torch.Tensor:
+    """Full inverse warp: src (B, H, W, C) resampled into the target camera
+    from its depth (B, H, W[, 1]) and the relative pose T (B, 4, 4) (target
+    points into source coordinates): backproject -> project ->
+    `bilinear_sampler`."""
+    pix = pixel_grid(height, width, device=src.device, dtype=src.dtype)
+    points = backproject_depth(depth, inv_K, pix)
+    coords = project_3d(points, K, T, height, width)
+    return bilinear_sampler(src, coords)

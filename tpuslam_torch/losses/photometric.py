@@ -65,10 +65,13 @@ def reprojection_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return 0.85 * ssim_l + 0.15 * l1
 
 
-def smooth_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+def smooth_loss(disp: torch.Tensor, img: torch.Tensor,
+                static_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Edge-aware smoothness mean |d disp| * exp(-|d img|) -> (B,).
 
-    disp (B, H, W, 1) mean-normalised disparity; img (B, H, W, 3)."""
+    disp (B, H, W, 1) mean-normalised disparity; img (B, H, W, 3); with
+    `static_mask` (B, H, W), 1 = keep, the mean runs over static pixels
+    only (the mask_dynamic pretraining path)."""
     d = disp[..., 0]
     grad_disp_x = (d[:, :, :-1] - d[:, :, 1:]).abs()
     grad_disp_y = (d[:, :-1, :] - d[:, 1:, :]).abs()
@@ -76,7 +79,13 @@ def smooth_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
     grad_img_y = (img[:, :-1, :] - img[:, 1:, :]).abs().mean(-1)
     gx = grad_disp_x * torch.exp(-grad_img_x)
     gy = grad_disp_y * torch.exp(-grad_img_y)
-    return gx.mean((1, 2)) + gy.mean((1, 2))
+    if static_mask is None:
+        return gx.mean((1, 2)) + gy.mean((1, 2))
+    mx = static_mask[:, :, :-1]
+    my = static_mask[:, :-1, :]
+    sx = (gx * mx).sum((1, 2)) / (mx.sum((1, 2)) + 1e-7)
+    sy = (gy * my).sum((1, 2)) / (my.sum((1, 2)) + 1e-7)
+    return sx + sy
 
 
 def normalize_disp(disp: torch.Tensor) -> torch.Tensor:
@@ -123,6 +132,7 @@ def total_loss(
     velocity_loss_scaling: Optional[float] = 0.05,
     sample_weights: Optional[torch.Tensor] = None,
     rng: Optional[torch.Generator] = None,
+    dynamic_masks: Optional[Dict[int, torch.Tensor]] = None,
     identity_base: Optional[torch.Tensor] = None,
     scale_prior_weight: float = 0.0,
     scale_prior_disp: float = 0.15,
@@ -139,6 +149,11 @@ def total_loss(
     tie-break noise, fresh per scale and broadcast over the batch; None
     turns it off.  `reproj_maps` supplies precomputed (B, H, W) error maps
     per (frame, scale) in place of the reprojection_loss calls.
+
+    `dynamic_masks` (scale -> (B, Hs, Ws), 1 = dynamic object) turns on the
+    mask_dynamic pretraining path: the reprojection term averages over the
+    static pixels of the whole batch (not per-sample weighted), and the
+    smoothness term over each sample's static pixels.
     """
     target = inputs[("rgb", 0, 0)]
     B = target.shape[0]
@@ -168,12 +183,20 @@ def total_loss(
             )
         combined = torch.cat([identity, reproj], dim=1)
         to_optimize = combined.min(dim=1).values
-        reproj_l = (to_optimize.mean((1, 2)) * sample_weights).sum()
+        if dynamic_masks is not None:
+            static0 = 1.0 - dynamic_masks[0]
+            reproj_l = (to_optimize * static0).sum() / (static0.sum() + 1e-7)
+        else:
+            reproj_l = (to_optimize.mean((1, 2)) * sample_weights).sum()
         losses[f"reprojection_loss/scale_{scale}"] = reproj_l
 
         disp = outputs[("disp", scale)]
         color = inputs[("rgb", 0, scale)]
-        smooth_l = (smooth_loss(normalize_disp(disp), color) * sample_weights).sum()
+        if dynamic_masks is not None:
+            smooth_l = smooth_loss(normalize_disp(disp), color,
+                                   static_mask=1.0 - dynamic_masks[scale]).mean()
+        else:
+            smooth_l = (smooth_loss(normalize_disp(disp), color) * sample_weights).sum()
         losses[f"smooth_loss/scale_{scale}"] = smooth_l
         reg_l = disparity_smoothness / (2**scale) * smooth_l
         losses[f"reg_loss/scale_{scale}"] = reg_l

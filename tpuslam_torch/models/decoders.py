@@ -2,8 +2,9 @@
 
 Counterpart of `tpuslam/models/decoders.py`: five up-stages of ConvBlock ->
 nearest upsample to the skip's size -> skip concat -> ConvBlock, with sigmoid
-disparity heads at the requested scales computed in float32; the pose head
-is squeeze-1x1 + three convs -> global mean -> 0.01 scaling.  Module names
+disparity heads at the requested scales computed in float32 (float64 in a
+float64 model); the pose head is squeeze-1x1 + three convs -> global mean ->
+0.01 scaling.  Module names
 follow the monodepth2 checkpoints (`upconv_{i}_{j}.conv.conv`,
 `dispconv_{s}.conv`, `squeeze`, `pose_{k}`).
 
@@ -16,6 +17,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from tpuslam_torch import at_least_f32
 
 DECODER_CHANNELS = (16, 32, 64, 128, 256)
 
@@ -82,7 +85,7 @@ class DepthDecoder(nn.Module):
             x = getattr(self, f"upconv_{i}_1")(x)
             if i in self.scales:
                 disp = getattr(self, f"dispconv_{i}")(x)
-                outputs[("disp", i)] = torch.sigmoid(disp.float()).permute(0, 2, 3, 1)
+                outputs[("disp", i)] = torch.sigmoid(at_least_f32(disp)).permute(0, 2, 3, 1)
         return outputs
 
 
@@ -102,6 +105,6 @@ class PoseDecoder(nn.Module):
         x = F.relu(self.squeeze(last_feature))
         x = F.relu(self.pose_0(x))
         x = F.relu(self.pose_1(x))
-        x = self.pose_2(x).float().mean((2, 3))
+        x = at_least_f32(self.pose_2(x)).mean((2, 3))
         x = 0.01 * x.reshape(-1, self.num_frames, 6)
         return x[..., :3], x[..., 3:]

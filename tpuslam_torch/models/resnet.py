@@ -7,8 +7,15 @@ num_input_images channels) for the pose network.  Modules carry the
 monodepth2 / torchvision names (`resnet.conv1`, `resnet.layer1.0.conv1`,
 `...downsample.0`), so reference `.pth` state dicts load directly.
 
-Takes NHWC images and returns NCHW feature maps in float32 (the tensors are
-channels-last in memory, which is cuDNN's fast layout).
+Takes NHWC images and returns NCHW feature maps in float32, or float64 for a
+float64 input (the tensors are channels-last in memory, which is cuDNN's
+fast layout).
+
+Batch norm in train mode (`model.train()`, pretraining) normalises with the
+batch statistics, as torch does, but moves its running statistics by
+flax's rule, which differs from `nn.BatchNorm2d`'s: the running variance
+takes the biased batch variance (torch takes the unbiased one, n / (n - 1)
+larger, up to 4 / 3 on small maps), computed in float32 under autocast.
 """
 from __future__ import annotations
 
@@ -18,26 +25,44 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from tpuslam_torch import at_least_f32
+
 RESNET_STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 ENCODER_CHANNELS = (64, 64, 128, 256, 512)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    # flax BatchNorm(momentum=0.9, epsilon=1e-5) == torch momentum 0.1
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """flax `BatchNorm(momentum=0.9, epsilon=1e-5)`: in train mode the
+    running statistics become 0.9 * running + 0.1 * batch statistic, with
+    the biased variance; eval mode is `nn.BatchNorm2d`'s."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+            self.num_batches_tracked.add_(1)
+        return y
+
 
 
 class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = BatchNorm(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride, bias=False), _bn(planes)
+                nn.Conv2d(inplanes, planes, 1, stride, bias=False), BatchNorm(planes)
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +80,7 @@ class _ResNet(nn.Module):
         if num_layers not in RESNET_STAGES:
             raise ValueError(f"Unsupported ResNet depth: {num_layers}")
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = BatchNorm(64)
         inplanes = 64
         for i, (blocks, planes) in enumerate(zip(RESNET_STAGES[num_layers],
                                                  ENCODER_CHANNELS[1:])):
@@ -85,4 +110,4 @@ class ResNetEncoder(nn.Module):
         for layer in (r.layer1, r.layer2, r.layer3, r.layer4):
             x = layer(x)
             features.append(x)
-        return [f.float() for f in features]
+        return [at_least_f32(f) for f in features]

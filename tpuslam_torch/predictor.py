@@ -9,9 +9,11 @@ which also reads the JAX package's), and the import of a reference
 `weights_NNN/` folder.  The warp of every step is routed by the `pallas_*`
 flags of the config, as in `Slam`.
 
-Not ported yet, and refused with NotImplementedError: `train`, `validate`,
-and ImageNet encoders (`encoder_weights` / `resnet_pretrained`); they need
-the pretrainer (ROADMAP.md Queue 1, item 5).
+Pretraining (`train`) runs the port's `Pretrainer` on the facade's networks;
+`validate` is the mean no-grad loss over a split.  ImageNet encoders come
+from a local torchvision `.pth` (`encoder_weights`, `resnet_pretrained`).
+Not ported yet, and refused with NotImplementedError: `train(use_wandb=True)`
+(its logger, `utils/profiling.py`, is ROADMAP.md Queue 1: profiling).
 
 Images are NHWC float32 in [0, 1] (numpy arrays or tensors); a single image
 may omit the batch dimension.  Runs on the card unless `device="cpu"`.
@@ -29,6 +31,7 @@ import torch
 
 from tpuslam_torch import full_fp32, resolve_device
 from tpuslam_torch.checkpoint.io import latest_checkpoint, load_checkpoint, save_checkpoint
+from tpuslam_torch.checkpoint.torch_import import init_encoders_from_imagenet
 from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig
 from tpuslam_torch.data.base import Sample
 from tpuslam_torch.eval.depth import _resize_bilinear, calc_depth_error
@@ -38,7 +41,8 @@ from tpuslam_torch.geometry.se3 import se3_inverse
 from tpuslam_torch.losses.photometric import reprojection_loss
 from tpuslam_torch.models.depth_pose import init_depth_pose
 from tpuslam_torch.ops.warp import warp_two_kernel
-from tpuslam_torch.train.batch import FrameBatch, pad_batch
+from tpuslam_torch.train.batch import FrameBatch, make_frame_batch, pad_batch
+from tpuslam_torch.train.pretrain import Pretrainer, host_batches
 from tpuslam_torch.train.state import TrainState, make_adapt_optimizer, make_train_state
 from tpuslam_torch.train.steps import (
     adapt_step,
@@ -48,8 +52,8 @@ from tpuslam_torch.train.steps import (
     predict_pose_step,
 )
 
-_NOT_PORTED = ("{} needs the pretrainer (train/pretrain.py), not ported to tpuslam_torch "
-               "yet (ROADMAP.md Queue 1, item 5)")
+_NO_WANDB = ("train(use_wandb=True) needs MetricsLogger (utils/profiling.py), not ported to "
+             "tpuslam_torch yet (ROADMAP.md Queue 1: profiling)")
 
 
 def _untrained_warning(trained: bool) -> None:
@@ -65,8 +69,6 @@ class DepthPosePrediction:
         use_online: bool = False,
         device="cuda",
     ):
-        if config.encoder_weights is not None or config.resnet_pretrained:
-            raise NotImplementedError(_NOT_PORTED.format("encoder_weights / resnet_pretrained"))
         self.device = resolve_device(device)
         self.dataset_config = dataset_config
         self.config = config
@@ -80,10 +82,14 @@ class DepthPosePrediction:
         self.is_trained = False
         self.epoch = 0
 
-        self.loss_cfg = loss_config(config)
+        # adaptation and inference read no dynamic-object mask (as in the JAX
+        # package); `mask_dynamic` applies to `train` only
+        self.loss_cfg = loss_config(config)._replace(mask_dynamic=False)
         self.model = init_depth_pose(0, resnet_depth=config.resnet_depth,
                                      resnet_pose=config.resnet_pose,
                                      scales=tuple(config.scales), device=self.device)
+        init_encoders_from_imagenet(self.model, config.encoder_weights,
+                                    required=config.resnet_pretrained)
         self.model.requires_grad_(False)
         self.model.depth_decoder.requires_grad_(True)
         self.model.pose_decoder.requires_grad_(True)
@@ -106,11 +112,62 @@ class DepthPosePrediction:
         return image[None] if image.dim() == 3 else image
 
     # ------------------------------------------------------------ training
-    def train(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("train"))
+    def train(
+        self,
+        train_dataset,
+        val_dataset=None,
+        validate: bool = False,
+        depth_error: bool = False,
+        use_wandb: bool = False,
+        num_epochs: Optional[int] = None,
+    ) -> None:
+        """Offline pretraining (reference train()) of the facade's networks,
+        encoders included, in place, by a `Pretrainer` built from the config.
+        Afterwards adaptation starts from the trained networks with a fresh
+        Adam over the decoders.  (The JAX package's train() hands its
+        pretrainer the adaptation state, whose optax state has no learning
+        rate to set, and fails at the first epoch.)"""
+        if use_wandb:
+            raise NotImplementedError(_NO_WANDB)
+        c = self.config
+        trainer = Pretrainer(
+            height=self.height, width=self.width, scales=c.scales,
+            learning_rate=c.learning_rate, scheduler_step_size=c.scheduler_step_size,
+            batch_size=c.batch_size, min_depth=c.min_depth, max_depth=c.max_depth,
+            disparity_smoothness=c.disparity_smoothness,
+            velocity_loss_scaling=c.velocity_loss_scaling, mask_dynamic=c.mask_dynamic,
+            log_path=c.log_path, dp_devices=c.dp_devices,
+            scale_prior_epochs=c.scale_prior_epochs, scale_prior_weight=c.scale_prior_weight,
+            dtype=c.dtype, device=self.device, model=self.model,
+        )
+        try:
+            trainer.fit(
+                train_dataset, val_dataset,
+                num_epochs=num_epochs if num_epochs is not None else c.num_epochs,
+                save_frequency=c.save_frequency, validate=validate, depth_error=depth_error,
+                save_val_depth=(max(1, c.save_val_depth_batches) * c.batch_size
+                                if c.save_val_depth else 0),
+            )
+        finally:
+            self.model.requires_grad_(False)
+            self.model.depth_decoder.requires_grad_(True)
+            self.model.pose_decoder.requires_grad_(True)
+        self.state = self._train_state(self.model)
+        self.epoch = trainer.epoch
+        self.is_trained = True
 
-    def validate(self, *args, **kwargs) -> float:
-        raise NotImplementedError(_NOT_PORTED.format("validate"))
+    def validate(self, dataset, max_batches: Optional[int] = None) -> float:
+        """Mean no-grad loss over the split's batches (or its first
+        `max_batches`); NaN when it holds no full batch."""
+        _untrained_warning(self.is_trained)
+        losses = []
+        for i, arrays in enumerate(host_batches(dataset, self.batch_size,
+                                                np.random.default_rng(0), shuffle=False)):
+            if max_batches is not None and i >= max_batches:
+                break
+            batch = make_frame_batch(**arrays, device=self.device)
+            losses.append(eval_step(self.model, self.loss_cfg, batch)[0]["loss"])
+        return float(torch.stack(losses).mean()) if losses else float("nan")
 
     def adapt(
         self,

@@ -36,7 +36,7 @@ every `keyframe_frequency` steps while step < 4000, with a cooldown of
 `lc_distance_poses`; `start_frame` gates the mapping.
 
 Not ported yet, and refused with NotImplementedError rather than ignored:
-the MobileNet embedder and the Kitti / RobotCar datasets.
+the MobileNet embedder.
 """
 from __future__ import annotations
 
@@ -54,6 +54,8 @@ from tpuslam_torch import resolve_device
 from tpuslam_torch.checkpoint.io import load_checkpoint, save_checkpoint
 from tpuslam_torch.config.schema import Config
 from tpuslam_torch.data.base import Sample
+from tpuslam_torch.data.kitti import KittiOdometry
+from tpuslam_torch.data.robotcar import DEFAULT_SEQUENCE, EVAL_WINDOWS, RobotCar
 from tpuslam_torch.data.synthetic import SyntheticDataset
 from tpuslam_torch.eval.depth import calc_depth_error
 from tpuslam_torch.eval.trajectory import calc_error, rotation_error, translation_error
@@ -88,22 +90,16 @@ def _odometry_information() -> np.ndarray:
     return np.linalg.inv(cov)
 
 
-def _refuse_unported(config: Config, dataset) -> None:
-    refused = {
-        "loop_closure.embedder: mobilenet": config.loop_closure.embedder == "mobilenet",
-        f"dataset {config.dataset.dataset}": (
-            dataset is None and config.dataset.dataset in ("Kitti", "RobotCar")),
-    }
-    on = [name for name, value in refused.items() if value]
-    if on:
+def _refuse_unported(config: Config) -> None:
+    if config.loop_closure.embedder == "mobilenet":
         raise NotImplementedError(
-            f"not ported to tpuslam_torch yet (ROADMAP.md Queue 1): {', '.join(on)}"
-        )
+            "loop_closure.embedder: mobilenet is not ported to tpuslam_torch yet "
+            "(ROADMAP.md Queue 1: the MobileNet embedder)")
 
 
 class Slam:
     def __init__(self, config: Config, dataset=None, device="cuda"):
-        _refuse_unported(config, dataset)
+        _refuse_unported(config)
         self.device = resolve_device(device)
         self.config = config
         sc, dc, pc = config.slam, config.dataset, config.depth_pose
@@ -123,6 +119,19 @@ class Slam:
 
         if dataset is not None:
             self.dataset = dataset
+        elif dc.dataset == "Kitti":
+            self.dataset = KittiOdometry(
+                dc.dataset_path, int(sc.dataset_sequence), height=dc.height, width=dc.width,
+                with_poses=True, min_distance=sc.min_distance,
+            )
+        elif dc.dataset == "RobotCar":
+            # the reference's evaluation windows
+            window = EVAL_WINDOWS.get(int(sc.dataset_sequence), (750, 4750))
+            self.dataset = RobotCar(
+                dc.dataset_path, DEFAULT_SEQUENCE, height=dc.height, width=dc.width,
+                with_poses=True, min_distance=sc.min_distance, start_frame=window[0],
+                end_frame=window[1], every_n_frame=2,
+            )
         elif dc.dataset == "Synthetic":
             self.dataset = SyntheticDataset(
                 num_frames=dc.num_frames, height=dc.height, width=dc.width,
@@ -131,7 +140,9 @@ class Slam:
         else:
             raise ValueError(f"unsupported dataset type {dc.dataset}")
 
-        self.loss_cfg = loss_config(pc)
+        # online frames carry no dynamic-object mask; `mask_dynamic` is a
+        # pretraining option, which the JAX package's Slam does not read
+        self.loss_cfg = loss_config(pc)._replace(mask_dynamic=False)
         model = init_depth_pose(
             0, resnet_depth=pc.resnet_depth, resnet_pose=pc.resnet_pose,
             scales=pc.scales, device=self.device,

@@ -4,7 +4,9 @@ Counterpart of `tpuslam/train/batch.py`: one frame triplet per sample, NHWC,
 frame axis ordered (-1, 0, 1); `rel_dist[:, 0]` is the -1 -> 0 distance and
 `rel_dist[:, 1]` the 0 -> 1 distance.  `weights` are the per-sample loss
 weights and double as padding: a short replay batch is padded with
-zero-weight samples so every frame has the same shapes.
+zero-weight samples so every frame has the same shapes.  `mask` is the
+dynamic-object mask of frame 0, read only under `LossConfig.mask_dynamic`;
+None stands for the JAX package's all-zero mask.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ class FrameBatch:
     inv_K: torch.Tensor  # (B, 4, 4)
     rel_dist: torch.Tensor  # (B, 2)
     weights: torch.Tensor  # (B,) per-sample loss weights (sum to 1)
+    mask: Optional[torch.Tensor] = None  # (B, H, W) f32, 1 = dynamic object
 
     @property
     def batch_size(self) -> int:
@@ -55,10 +58,11 @@ def make_frame_batch(
     rgb_aug: Optional[np.ndarray] = None,
     weights: Optional[np.ndarray] = None,
     device="cuda",
+    mask: Optional[np.ndarray] = None,
 ) -> FrameBatch:
     """Host arrays -> a FrameBatch on `device` (aug defaults to rgb, weights
-    to uniform).  Images ship as uint8, float inputs rounded to the nearest
-    1/255 level."""
+    to uniform, the mask to None).  Images ship as uint8, float inputs
+    rounded to the nearest 1/255 level."""
     from tpuslam_torch import resolve_device
 
     device = resolve_device(device)
@@ -84,7 +88,8 @@ def make_frame_batch(
         return torch.from_numpy(np.array(x, np.float32)).to(device)
 
     return FrameBatch(rgb=prgb, rgb_aug=paug, K=put(K), inv_K=put(inv_K),
-                      rel_dist=put(rel_dist), weights=put(weights))
+                      rel_dist=put(rel_dist), weights=put(weights),
+                      mask=None if mask is None else put(mask))
 
 
 def pad_batch(batch: FrameBatch, target_size: int) -> FrameBatch:
@@ -106,6 +111,7 @@ def pad_batch(batch: FrameBatch, target_size: int) -> FrameBatch:
         inv_K=pad_arr(batch.inv_K),
         rel_dist=pad_arr(batch.rel_dist),
         weights=torch.cat([batch.weights, batch.weights.new_zeros(pad)]),
+        mask=None if batch.mask is None else pad_arr(batch.mask),
     )
 
 
@@ -123,4 +129,13 @@ def concat_batches(a: FrameBatch, b: FrameBatch) -> FrameBatch:
         inv_K=torch.cat([a.inv_K, b.inv_K]),
         rel_dist=torch.cat([a.rel_dist, b.rel_dist]),
         weights=w,
+        mask=_concat_masks(a, b),
     )
+
+
+def _concat_masks(a: FrameBatch, b: FrameBatch) -> Optional[torch.Tensor]:
+    """The masks of `concat_batches`; a side without one is all zeros."""
+    if a.mask is None and b.mask is None:
+        return None
+    return torch.cat([x.mask if x.mask is not None else x.rgb.new_zeros(
+        x.rgb.shape[:1] + x.rgb.shape[2:4], dtype=torch.float32) for x in (a, b)])

@@ -1,4 +1,4 @@
-"""The per-frame adaptation and evaluation steps.
+"""The per-frame adaptation and evaluation steps, and the pretraining step.
 
 Counterpart of `tpuslam/train/steps.py`.  One SLAM frame (`adapt_step`):
 
@@ -14,16 +14,20 @@ its optimizer step, as in the reference's adapt().  Networks run under bf16
 autocast when the config's dtype is bfloat16; geometry, the warp and the
 losses always run in float32, and TF32 is off inside every entry point
 (`tpuslam_torch.full_fp32`).
+
+One pretraining step (`train_step`) runs `forward` over the whole network,
+encoders included, with batch norm in train mode, then backward and one
+optimizer step over every parameter.
 """
 from __future__ import annotations
 
 import dataclasses
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from tpuslam_torch import full_fp32
+from tpuslam_torch import at_least_f32, full_fp32
 from tpuslam_torch.geometry.camera import (
     backproject_depth,
     bilinear_sampler,
@@ -50,6 +54,9 @@ class LossConfig(NamedTuple):
     max_depth: Optional[float] = None
     disparity_smoothness: float = 1e-3
     velocity_loss_scaling: Optional[float] = 0.05
+    # average the losses over the static pixels of `FrameBatch.mask` (the
+    # dynamic-object masks of Cityscapes pretraining)
+    mask_dynamic: bool = False
     # True: the warp runs the CUDA kernels of `ops/warp.py`; False: the plain
     # differentiable sampler `bilinear_sampler`
     use_pallas_warp: bool = True
@@ -103,6 +110,7 @@ def loss_config(pc) -> LossConfig:
         max_depth=pc.max_depth,
         disparity_smoothness=pc.disparity_smoothness,
         velocity_loss_scaling=pc.velocity_loss_scaling,
+        mask_dynamic=pc.mask_dynamic,
         use_pallas_warp=pc.pallas_warp,
         pallas_bf16_out=pc.pallas_bf16_out,
         pallas_packed=pc.pallas_packed,
@@ -213,7 +221,7 @@ def warp_and_loss(
                                torch.cat([T_prev, T_next]))
     else:
         T_stack = torch.cat([_tile(T_prev, S), _tile(T_next, S)])
-        pix = pixel_grid(H, W, device=depth_stack.device)
+        pix = pixel_grid(H, W, device=depth_stack.device, dtype=depth_stack.dtype)
         points = backproject_depth(depth_stack, _tile(batch.inv_K, S), pix)
         coords = project_3d(_tile(points, 2), _tile(batch.K, 2 * S), T_stack, H, W)
         coords = coords.contiguous()  # (2*S*B, H, W, 2)
@@ -271,6 +279,14 @@ def warp_and_loss(
     inputs[("rgb", 1, 0)] = batch.frame(1)
     inputs[("relative_distance", 0)] = batch.rel_dist[:, 0]
     inputs[("relative_distance", 1)] = batch.rel_dist[:, 1]
+    dynamic_masks = None
+    if cfg.mask_dynamic:
+        # mask pyramid: 2x2 mean, then binary again; torch.round rounds the
+        # 0.5 of a half-covered block to even (0), as jnp.round does
+        mask = batch.mask if batch.mask is not None else target.new_zeros((B, H, W))
+        dynamic_masks = {0: mask}
+        for s in range(1, S):
+            dynamic_masks[s] = torch.round(_avg_pool2(dynamic_masks[s - 1][..., None])[..., 0])
     losses = total_loss(
         inputs,
         outputs,
@@ -279,6 +295,7 @@ def warp_and_loss(
         velocity_loss_scaling=cfg.velocity_loss_scaling,
         sample_weights=batch.weights,
         rng=rng,
+        dynamic_masks=dynamic_masks,
         identity_base=identity_base,
         reproj_maps=reproj_maps,
         scale_prior_weight=cfg.scale_prior_weight,
@@ -296,7 +313,37 @@ def _decode_and_loss(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig,
     with _networks(cfg.bf16_networks, pose_feat.device):
         disps = model.depth_decode(depth_feats)
         aa, tr = model.pose_decode(pose_feat)
-    return warp_and_loss(disps, aa.float(), tr.float(), batch, cfg, **kwargs)
+    return warp_and_loss(disps, at_least_f32(aa), at_least_f32(tr), batch, cfg, **kwargs)
+
+
+@contextmanager
+def _bn_mode(model: DepthPoseNet, train: bool):
+    """Batch norm in train mode (batch statistics, running statistics
+    updated) or eval mode for the duration; the model's mode is restored."""
+    was = model.training
+    model.train(train)
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def forward(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig, *,
+            train_bn: bool = False, rng: Optional[torch.Generator] = None):
+    """Full forward: encoders, decoders, warps and losses -> (losses,
+    outputs), differentiable in every parameter.
+
+    The depth encoder reads the augmented frame 0 and the pose encoder both
+    pairs as one doubled batch of 2B (`_pose_pairs`), so that with
+    `train_bn` its batch statistics are taken over the 2B pairs, as the JAX
+    package takes them; the running statistics are updated in place.
+    `outputs[('feat4',)]` is the pooled last depth feature."""
+    with _bn_mode(model, train_bn), _networks(cfg.bf16_networks, batch.rgb.device):
+        depth_feats = model.depth_encode(batch.frame(0, aug=True))
+        pose_feats = model.pose_encode(_pose_pairs(batch))
+    losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feats[-1], rng=rng)
+    outputs[("feat4",)] = depth_feats[-1].mean((2, 3))
+    return losses, outputs
 
 
 def _frozen_features(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig):
@@ -405,8 +452,9 @@ def consolidate_step(state: TrainState, cfg: LossConfig, batch: FrameBatch, num_
     per-iteration losses (K,)."""
     if not freeze_encoder:
         raise NotImplementedError(
-            "consolidate_step(freeze_encoder=False) trains the encoders, the training path "
-            "that is not ported to tpuslam_torch yet (ROADMAP.md Queue 1)")
+            "consolidate_step(freeze_encoder=False): the port's consolidation keeps the "
+            "encoders frozen (clone_train_state shares them between clones); the training "
+            "path that trains them is `train_step`")
     _, _, iter_losses, _ = _adapt_scan(state, cfg, batch, num_steps, with_outputs=False)
     state.step += 1
     return iter_losses
@@ -433,7 +481,7 @@ def consolidate_step_async(state: TrainState, cfg: LossConfig, batch: FrameBatch
     stream.wait_stream(torch.cuda.current_stream())
     read = [getattr(batch, field.name) for field in dataclasses.fields(batch)]
     for t in read + train_state_tensors(state):
-        if t.is_cuda:
+        if t is not None and t.is_cuda:
             t.record_stream(stream)
     with torch.cuda.stream(stream):
         clone = clone_train_state(state)
@@ -460,6 +508,22 @@ def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch,
         outputs[("lc_embedding",)] = embed(model, batch.frame(1), cfg)
     outputs[("retire_packed",)] = _pack_retire(losses, outputs)
     return losses, outputs
+
+
+@full_fp32()
+def train_step(state: TrainState, cfg: LossConfig, batch: FrameBatch) -> Dict[str, torch.Tensor]:
+    """One pretraining step, in place: `forward` with batch norm in train
+    mode, backward through the whole network, one step of the state's
+    optimizer over all parameters.  The tie-break noise comes from
+    `state.rng` (None turns it off).  Returns the step's losses, detached
+    and on the device (no host sync)."""
+    opt = state.optimizer
+    opt.zero_grad(set_to_none=True)
+    losses, _ = forward(state.model, batch, cfg, train_bn=True, rng=state.rng)
+    losses["loss"].backward()
+    opt.step()
+    state.step += 1
+    return {k: v.detach() for k, v in losses.items()}
 
 
 @torch.no_grad()
