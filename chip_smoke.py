@@ -53,30 +53,44 @@ Phases, each printing lines tagged with its name and raising on failure
     as it stood before that solve, and a 1,000-vertex chain, solved by the
     float64 LM on the card and on the CPU and by the C++ solver, which must
     agree;
-15. rungs: `tpuslam_torch.cli.rungs` at 192 x 640, 16 frames, all five
+15. lc mobilenet: the same `Slam.run` over 30 frames of the loop with
+    loop closure on the MobileNetV3-small embedder (`embedder: mobilenet`,
+    random weights): 5 K1a launches and one embedder forward per frame, at
+    least one loop edge, its steady ms/frame beside lc main's and the
+    embedder's own (CUDA events), and the card's embeddings of 4 frames
+    against the CPU port's;
+16. rungs: `tpuslam_torch.cli.rungs` at 192 x 640, 16 frames, all five
     rungs and rung 5's sync ablation, with the launches read around each
     rung (K1b once a frame in rung 1 and in the async rung 5, whose updates
     launch K1a 3 times each on a second CUDA stream; K1a 3 times a frame
     elsewhere, plus once per generalist consolidation in rung 3), the
     async rung's launched / adopted updates and each rung's steady
     ms/frame;
-16. async check: the CoVIO update on the side stream against the same
+17. async check: the CoVIO update on the side stream against the same
     update on the current stream (K = 1: 1e-5 relative; K = 5 logged beside
     two runs on one stream), the serving state unchanged bit for bit, and a
     serving `eval_step` issued before the update's event is waited on equal
     to one issued after it;
-17. pretrain: `Pretrainer` at 192 x 640, ResNet-18, batch 18, on the K1a
+18. pretrain: `Pretrainer` at 192 x 640, ResNet-18, batch 18, on the K1a
     route (`pallas_warp=True`) and on the plain sampler: an epoch of 5
     `train_step`s (the whole network, batch norm in train mode) and a
     `validate` over 2 batches (5 K1a launches on N = 2*S*B = 144 images and
     2 K1b; none on the plain route), then the steady ms/step of 5 more
     steps, 3 steps under torch.profiler and the peak memory of each route;
-18. cli pretrain: `tpuslam_torch.cli.pretrain` on
+19. cli pretrain: `tpuslam_torch.cli.pretrain` on
     `pretrain_collapse_synthetic_192.yaml` for 2 epochs (12 of its 64
     frames), with no kernel launch (it runs the plain sampler), its
     `weights_*` folders and models/best.yaml, then one more epoch resumed
     through `Pretrainer.load`;
-19. kernels: every kernel (K1 with and without taps, K2's forward and
+20. ddp: a data-parallel pretraining step (`tpuslam_torch.parallel`, sync-BN)
+    at 192 x 640, batch 18, world size 1 over NCCL and 2 ranks over gloo on
+    the one card, each held against the single-process `train_step` on the
+    whole batch, with their ms/step;
+21. profiling: `profile_adapt_step` (K = 1, 5, 10) and `calibrate` at
+    192 x 640, batch 3 (no class may read faster than 95% of its speed of
+    light on the H100), `frame_sol_ms`, and a Chrome trace of one
+    `adapt_step` through `utils.profiling.trace`;
+22. kernels: every kernel (K1 with and without taps, K2's forward and
     backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it (the error-map
@@ -91,7 +105,7 @@ Phases, each printing lines tagged with its name and raising on failure
     with exact taps, `warp_dynamic`: no path calls them, and their rows
     carry K2's numbers); K1a and K1b also on the pretrain path's inputs,
     each a row of its own;
-20. reference: one adaptation step on the card and on the CPU at a small
+23. reference: one adaptation step on the card and on the CPU at a small
     size, with the K1 path, the fused stack, the two-kernel path and the
     packed variant (and the K1 path again at their size), and one
     `train_step` on the K1a route and on the plain one, which must agree.
@@ -754,7 +768,7 @@ def check_solves(solves: dict, tag: str, strict: bool) -> None:
     log("lc main", f"{tag}: solves agree: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
 
 
-def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms) -> None:
+def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms) -> float:
     """`Slam.run` over the synthetic loop at the operating point of
     `adapt_kitti.yaml`: adaptation (batch 3, K = 5, the shipped `pallas_*`
     defaults, bf16 networks), loop closure on the depth-encoder embedding
@@ -766,7 +780,8 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
     least one loop edge solved by the C++ solver, 5 K1a launches per
     adapted frame and no other kernel, and an empty retire queue; then
     solves the graph as it stood before its first solve, and a 1,000-vertex
-    chain, on the card, on the CPU and in C++, and holds them together."""
+    chain, on the card, on the CPU and in C++, and holds them together.
+    Returns the steady ms/frame."""
     import copy
     import math
 
@@ -861,6 +876,326 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
     chain, chain_gt = chain_graph(1000, 42, [(0, 999), (100, 900), (250, 750)])
     check_solves(solve_three_ways(chain, chain_gt, "a 1,000-vertex chain (3 loop edges)", card, 1),
                  "the 1,000-vertex chain", strict=False)
+    return ms
+
+
+LC_MOBILENET_FRAMES = 30  # the synthetic loop cut to 30 frames: one search (frame 25) past id_threshold
+
+
+def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) -> None:
+    """`Slam.run` as in "lc main" (adaptation on the K1 path, `pipeline_depth:
+    3`, a prefetch of 3 frames, `id_threshold` 20, `detection_threshold`
+    0.5), with loop closure on the MobileNetV3-small embedder (`embedder:
+    mobilenet`, randomly initialised: the repository holds no ImageNet
+    weights) over 30 frames of the synthetic loop.  Checks the losses, one
+    vertex per frame, at least one loop edge, 5 K1a launches per frame and
+    no other kernel, one embedder forward per frame; logs the searches and
+    edges, the steady ms/frame beside "lc main"'s and the embedder's own
+    ms/frame (CUDA events around each call); then holds the card's
+    embeddings of 4 frames against the CPU port's within 1e-4 relative."""
+    import copy
+
+    import numpy as np
+
+    from tpuslam_torch.slam import Slam
+
+    cfg = smoke_config(log_dir, adaptation=True)
+    cfg.dataset.num_frames, cfg.dataset.trajectory = LC_MOBILENET_FRAMES, "loop"
+    cfg.slam.do_loop_closures, cfg.slam.pipeline_depth = True, 3
+    cfg.slam.keyframe_frequency, cfg.slam.lc_distance_poses = 5, 150
+    cfg.loop_closure.embedder = "mobilenet"
+    cfg.loop_closure.id_threshold, cfg.loop_closure.detection_threshold = 20, 0.5
+    slam = Slam(cfg, device="cuda")
+    embedder = slam._mobilenet
+    spans, searches = [], []
+    embed = embedder.embed
+
+    def timed_embed(images):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = embed(images)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    search = slam.loop_closure_detection.search
+
+    def logged_search(frame_id):
+        det = slam.loop_closure_detection
+        sims, ids = det.index.search(det.index.reconstruct(frame_id)[None],
+                                     min(100, det.index.ntotal))
+        ok = (ids[0] >= 0) & (np.abs(ids[0] - frame_id) > det.id_threshold)
+        searches.append((frame_id, ids[0][ok], sims[0][ok]))
+        return search(frame_id)
+
+    embedder.embed = timed_embed
+    slam.loop_closure_detection.search = logged_search
+    reset_launches(wp, rp)
+    with PathGuard(wp, rp, {}):
+        slam.run(max_steps=LC_MOBILENET_FRAMES, progress=False, prefetch_depth=3)
+    launches = read_launches(wp, rp)
+    del embedder.embed  # the class's method again
+    torch.cuda.synchronize()
+    adapted = len(slam.step_times)
+    losses = slam.depth_loss + slam.velocity_loss
+    if slam._retire_queue or adapted != LC_MOBILENET_FRAMES or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"lc mobilenet: {adapted} frames adapted, queue "
+                             f"{len(slam._retire_queue)}, losses {losses}")
+    if slam.pose_graph.vertex_ids != list(range(adapted + 1)) or len(spans) != adapted:
+        raise AssertionError(f"lc mobilenet: vertices {slam.pose_graph.vertex_ids}, "
+                             f"{len(spans)} embedder calls")
+    expect_launches("lc mobilenet", launches, {"warp_static_fused": 5 * adapted})
+    if slam.pose_graph.num_loop_closures < 1:
+        raise AssertionError(f"lc mobilenet: no loop edge; searches {searches}")
+    for frame_id, ids, sims in searches:
+        log("lc mobilenet", f"search at frame {frame_id}: candidates "
+            + (", ".join(f"{i} sim {s:.6f}" for i, s in zip(ids, sims)) or "none")
+            + " (threshold 0.5, id_threshold 20)")
+    for d in slam.lc_edge_diagnostics:
+        log("lc mobilenet", f"loop edge {d['step']} -> {d['lc_id']}: sim {d['sim']:.6f}, "
+            f"predicted distance {d['pred_dist']:.3f} m, ground truth {d['gt_dist']:.3f} m")
+    ms = 1e3 * float(np.mean(slam.step_times[2:]))
+    embed_ms = float(np.mean([s.elapsed_time(e) for s, e in spans[2:]]))
+    log("lc mobilenet", f"{adapted} frames adapted in Slam.run, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, {slam.pose_graph.num_loop_closures} "
+        f"loop edge(s), index of {slam.loop_closure_detection.index.ntotal} 576-d embeddings; "
+        f"steady {ms:.2f} ms/frame (frames 3-{adapted}) beside lc main's {lc_ms:.2f}; the "
+        f"embedder {embed_ms:.3f} ms/frame between CUDA events (frames 3-{adapted}) [{card}]")
+
+    images = np.stack([slam.dataset[i].rgb[2] for i in (0, 7, 14, 21)])
+    got = embedder.embed(torch.from_numpy(images).cuda()).cpu()
+    want = copy.deepcopy(embedder).cpu().embed(torch.from_numpy(images))
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"lc mobilenet: card vs CPU embeddings {errs}")
+    log("lc mobilenet", "card vs CPU embeddings of frames 1, 8, 15, 22: relative "
+        + ", ".join(f"{e:.3g}" for e in errs) + " (limit 1e-4)")
+
+
+DDP_STEPS = 3  # timed data-parallel steps after the one compared
+# Relative distance from the float64 `train_step` allowed to each float32
+# step of phase "ddp" (gradients network by network, as one vector each).
+# Sound steps read (NVIDIA H100 80GB HBM3, 700 W): losses <= 1.33e-6, BN
+# statistics <= 3.81e-8, decoders <= 3.81e-4, depth encoder <= 1.36e-3, pose
+# encoder <= 4.83e-3; the phase's control, the two ranks without sync-BN,
+# must land outside them (PERF.md, PR 9).
+DDP_LIMITS = {"losses": 1e-5, "stats": 1e-5, "depth_decoder": 1e-3, "pose_decoder": 1e-3,
+              "depth_encoder": 5e-3, "pose_encoder": 1.5e-2}
+
+
+def ddp_config():
+    from tpuslam_torch.train.steps import LossConfig
+
+    # the Pretrainer's defaults: four scales, the plain sampler, float32 networks
+    return LossConfig(scales=(0, 1, 2, 3), use_pallas_warp=False, bf16_networks=False)
+
+
+def ddp_model(torch, dtype=None):
+    from tpuslam_torch.models.depth_pose import init_depth_pose
+
+    model = init_depth_pose(0, device="cuda")
+    model.requires_grad_(True)
+    return model if dtype is None else model.to(dtype)
+
+
+def ddp_snapshot(torch, state, losses, step_fn, steps=DDP_STEPS):
+    """One step's losses, each network's gradient as one vector and the BN
+    running statistics as one, then `steps` more steps timed (host clock,
+    ended by a synchronize)."""
+    import numpy as np
+
+    model = state.model
+    grads = {}
+    for k, p in model.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        grads.setdefault(k.split(".")[0], []).append(g.double().cpu().numpy().ravel())
+    out = {f"grad/{n}": np.concatenate(v) for n, v in grads.items()}
+    out["losses"] = np.array([float(losses[k]) for k in sorted(losses)])
+    out["stats"] = np.concatenate([v.double().cpu().numpy().ravel()
+                                   for k, v in model.state_dict().items() if "running" in k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step_fn()
+    torch.cuda.synchronize()
+    out["ms"] = np.array(1e3 * (time.perf_counter() - t0) / max(steps, 1))
+    return out
+
+
+def ddp_run(torch, rank: int, world: int, tmp: Path, steps=DDP_STEPS):
+    """This rank's data-parallel step on its slice of the phase's batch."""
+    import numpy as np
+
+    from tpuslam_torch.parallel import make_dp_train_step, shard_batch
+    from tpuslam_torch.train.batch import make_frame_batch
+    from tpuslam_torch.train.state import make_pretrain_optimizer, make_train_state
+
+    arrays = dict(np.load(tmp / "ddp_batch.npz"))
+    shard = shard_batch(make_frame_batch(**arrays, device="cuda"), rank, world)
+    model = ddp_model(torch)
+    state = make_train_state(model, make_pretrain_optimizer(model, 1e-4), seed=None)
+    step = make_dp_train_step(model, ddp_config())
+    losses = step(state, shard)
+    return ddp_snapshot(torch, state, losses, lambda: step(state, shard), steps)
+
+
+def ddp_gloo_rank(rank: int, init_method: str, tmp: str) -> None:
+    """One of two ranks of phase "ddp", over gloo on the one card; then the
+    phase's control, one step with each rank's batch norms on its own
+    half of the batch (sync-BN off)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tpuslam_torch.parallel import make_process_group, mesh
+
+    make_process_group(2, rank, "cuda:0", init_method, backend="gloo")
+    try:
+        out = ddp_run(torch, rank, 2, Path(tmp))
+        mesh.sync_batch_norm = lambda model, group: contextlib.nullcontext()
+        control = ddp_run(torch, rank, 2, Path(tmp), steps=0)
+        if rank == 0:
+            np.savez(Path(tmp) / "ddp_gloo.npz", **out)
+            np.savez(Path(tmp) / "ddp_control.npz", **control)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp(torch, wp, rp, log_dir: Path, card: str) -> None:
+    """A data-parallel pretraining step (`tpuslam_torch.parallel`: sync-BN,
+    averaged gradients and losses) at 192 x 640, ResNet-18, batch 18, the
+    Pretrainer's route (plain sampler, float32 networks, noise off), in two
+    setups: world size 1 over NCCL in this process, and 2 ranks over gloo
+    sharing the one card (NCCL refuses two ranks on one device), started
+    with torch.multiprocessing.  The single-process `train_step` on the
+    whole batch runs beside them in float32 and, as their common oracle, in
+    float64 (the card's float32 gradients at this size are ill-conditioned:
+    PERF.md).  Each float32 step, the single-process one included, must
+    hold its losses, its BN running statistics and each network's gradient
+    (one vector each) within `DDP_LIMITS` of float64 (relative); the
+    control, the two ranks without sync-BN, must break at least one of
+    them.  Logs everything beside everything, and each one's ms/step; no
+    kernel launches (plain sampler)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tpuslam_torch.data.synthetic import SyntheticDataset
+    from tpuslam_torch.parallel import local_init_method, make_process_group
+    from tpuslam_torch.train.batch import make_frame_batch
+    from tpuslam_torch.train.pretrain import stack_samples
+    from tpuslam_torch.train.state import make_pretrain_optimizer, make_train_state
+    from tpuslam_torch.train.steps import train_step
+
+    world_ds = SyntheticDataset(num_frames=PRETRAIN_B + 2, height=H, width=W,
+                                do_augmentation=True)
+    arrays = stack_samples([world_ds[i] for i in range(PRETRAIN_B)])
+    del arrays["mask"]
+    np.savez(log_dir / "ddp_batch.npz", **arrays)
+    reset_launches(wp, rp)
+    runs = {}
+    for name, dtype in (("train_step float64", torch.float64), ("train_step", None)):
+        model = ddp_model(torch, dtype)
+        state = make_train_state(model, make_pretrain_optimizer(model, 1e-4), seed=None)
+        batch = make_frame_batch(**arrays, device="cuda")
+        if dtype is not None:
+            floats = {f.name: getattr(batch, f.name).to(dtype)
+                      for f in dataclasses.fields(batch) if f.name not in ("rgb", "rgb_aug")
+                      and getattr(batch, f.name) is not None}
+            batch = dataclasses.replace(batch, rgb=batch.rgb.to(dtype) / 255,
+                                        rgb_aug=batch.rgb_aug.to(dtype) / 255, **floats)
+        losses = train_step(state, ddp_config(), batch)
+        runs[name] = ddp_snapshot(torch, state, losses,
+                                  lambda: train_step(state, ddp_config(), batch))
+        del model, state, batch, losses
+        torch.cuda.empty_cache()
+
+    make_process_group(1, 0, "cuda", local_init_method())
+    try:
+        runs["world size 1 over NCCL"] = ddp_run(torch, 0, 1, log_dir)
+    finally:
+        dist.destroy_process_group()
+    expect_launches("ddp", read_launches(wp, rp), {})
+    mp.spawn(ddp_gloo_rank, args=(local_init_method(), str(log_dir)), nprocs=2)
+    runs["2 ranks over gloo, one card"] = dict(np.load(log_dir / "ddp_gloo.npz"))
+    control = dict(np.load(log_dir / "ddp_control.npz"))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    nets = ("depth_decoder", "pose_decoder", "depth_encoder", "pose_encoder")
+
+    def errors(got, want):
+        return {"losses": rel(got["losses"], want["losses"]),
+                "stats": rel(got["stats"], want["stats"]),
+                **{n: rel(got[f"grad/{n}"], want[f"grad/{n}"]) for n in nets}}
+
+    want = runs.pop("train_step float64")
+    for name, got in runs.items():
+        err = errors(got, want)
+        bad = [k for k, limit in DDP_LIMITS.items() if not err[k] <= limit]
+        if bad or not all(np.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"ddp, {name}: against float64 {err}, limits {DDP_LIMITS}")
+        between = errors(got, runs["train_step"]) if name != "train_step" else None
+        log("ddp", f"{name}, batch {PRETRAIN_B} at {H}x{W}, against the float64 train_step: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+            + (("; against the float32 train_step: "
+                + ", ".join(f"{k} {v:.3g}" for k, v in between.items())) if between else "")
+            + f"; {float(got['ms']):.2f} ms/step (host clock, {DDP_STEPS} steps; "
+            f"float64 train_step {float(want['ms']):.2f}) [{card}]")
+    err = errors(control, want)
+    caught = [k for k, limit in DDP_LIMITS.items() if not err[k] <= limit]
+    if not caught:
+        raise AssertionError(f"ddp: the control (no sync-BN) passes every limit: {err}")
+    log("ddp", "control, 2 ranks over gloo without sync-BN, against the float64 train_step: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+        + f"; outside the limits: {', '.join(caught)} [{card}]")
+
+
+def phase_profiling(torch, log_dir: Path, card: str) -> None:
+    """`utils.profiling.profile_adapt_step` (K = 1, 5, 10) and
+    `utils.calibration.calibrate` at 192 x 640, batch 3, on the card, with
+    `frame_sol_ms` beside the fitted frame; a class measured faster than
+    95% of its speed of light is a failure (that reading is impossible).
+    `utils.profiling.trace` around one `adapt_step` must write a Chrome
+    trace that holds device kernels."""
+    from tpuslam_torch.utils.calibration import HEADER, calibrate, frame_sol_ms
+    from tpuslam_torch.utils.profiling import (adapt_state, profile_adapt_step,
+                                               random_training_batch, trace)
+    from tpuslam_torch.train.steps import LossConfig, adapt_step
+
+    fit = profile_adapt_step(H, W, 3, iters=(1, 5, 10), repeats=4, device="cuda")
+    sol = frame_sol_ms(height=H, width=W, batch=3)
+    log("profiling", "profile_adapt_step (K1 path, bf16 networks, K = 1, 5, 10, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fit.items())
+        + f"; frame_sol_ms (K = 5, the same route) {sol:.4f} ms [{card}]")
+    rows = calibrate(H, W, 3, repeats=6, device="cuda")
+    log("profiling", "calibrate: " + " | ".join(HEADER))
+    for r in rows:
+        log("profiling", "calibrate: " + " | ".join(
+            f"{r[k]:.6g}" if isinstance(r[k], float) else r[k] for k in HEADER))
+    impossible = [r for r in rows if r["measured_ms"] < 0.95 * r["sol_ms"]]
+    if impossible:
+        raise AssertionError(f"profiling: measured under 95% of the speed of light: {impossible}")
+    if not 0 < sol < fit["ms_frame_K5"]:
+        raise AssertionError(f"profiling: frame_sol_ms {sol} against {fit['ms_frame_K5']}")
+    state = adapt_state(0, "cuda")
+    training = random_training_batch(H, W, 3, 0, "cuda")
+    with trace(log_dir / "trace"):
+        adapt_step(state, LossConfig(), training, num_steps=1)
+        torch.cuda.synchronize()
+    events = json.loads((log_dir / "trace" / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("profiling: the trace holds no device kernel")
+    log("profiling", f"trace: {len(events)} events, {len(kernels)} device kernels in one "
+        f"adapt_step (K = 1) [{card}]")
 
 
 RUNG_FRAMES = 16  # frames of each rung of the "rungs" phase
@@ -1698,12 +2033,15 @@ def main() -> int:
             torch, wp, rp, "fused loss", log_dir, cap.setdefault("fused loss", {}), card, 4,
             fused_loss, pallas_tall=True, pallas_fused_loss=True)
         del slam
-        phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card, k1_ms)
+        lc_ms = phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card, k1_ms)
+        phase_lc_mobilenet(torch, wp, rp, log_dir, card, lc_ms)
         phase_rungs(torch, wp, rp, log_dir, cap.setdefault("rungs", {}), card)
         phase_async_check(torch, log_dir, card)
         pretrain_launches = phase_pretrain(torch, wp, rp, log_dir, cap.setdefault("pretrain", {}),
                                            card)
         phase_cli_pretrain(torch, wp, rp, log_dir, cap.setdefault("cli pretrain", {}), card)
+        phase_ddp(torch, wp, rp, log_dir, card)
+        phase_profiling(torch, log_dir, card)
         results = phase_kernels(torch, wp, rp, cap, card)
         cap.clear()
         phase_reference(torch, log_dir, "K1 path")

@@ -200,22 +200,72 @@ def test_slam_inference_loop_closures_match_jax(tmp_path):
     assert ("lc_embedding",) not in plain and plain[("retire_packed",)].shape == (531,)
 
 
-def test_slam_adaptation_pipelined_matches_jax(tmp_path):
+def _float64_slam(tmp_path, jslam):
+    """The port's `Slam` on the same YAML and weights, run in float64 end
+    to end (networks, batches, images to embed; the plain sampler, since
+    the kernels take float32 only): the oracle of the adapting runs."""
+    import dataclasses
+
+    import tpuslam_torch.slam.slam as slam_module
+
+    slam = Slam(parse_config(tmp_path / "slam.yaml"), device="cpu")
+    load_jax_variables(slam.model, jslam.state.params, jslam.state.batch_stats)
+    slam.model.double()
+    slam.state.rng = None
+    slam.loss_cfg = slam.loss_cfg._replace(use_pallas_warp=False)
+    make_batch = slam_module.make_frame_batch
+
+    def make_batch64(*args, **kwargs):
+        b = make_batch(*args, **kwargs)
+        rgb = {k: getattr(b, k).double() / 255 for k in ("rgb", "rgb_aug")}
+        rest = {f.name: getattr(b, f.name).double() for f in dataclasses.fields(b)
+                if f.name not in rgb and getattr(b, f.name) is not None
+                and getattr(b, f.name).is_floating_point()}
+        return dataclasses.replace(b, **rgb, **rest)
+
+    slam._to_device = lambda images: torch.from_numpy(np.asarray(images, np.float64))
+    return slam, make_batch64
+
+
+def test_slam_adaptation_pipelined_matches_jax(tmp_path, monkeypatch):
     """Adaptation (K = 2, batch 3 with replay) with `pipeline_depth: 2` on a
-    12-frame loop: the same replay composition, the same loop edges (at
-    least one), and the trajectory within 1e-3, as `test_torch_port_slam.py`
-    holds the unpipelined loop (the tie-break noise of the JAX step comes
-    from jax.random)."""
+    12-frame loop: the same replay composition and the same loop edges (at
+    least one) in both packages and in the port run in float64; each
+    package's trajectory within 1e-3 of the float64 one, and its depth
+    losses within 2e-3 relative of the float64 ones.
+
+    The tie-break noise is off on both sides (the port's generator None, the
+    JAX step's `total_loss` called with `rng=None`): the two packages draw
+    it from different generators.  Each side is held against float64, not
+    against the other, because Adam's steps amplify float32 rounding: with
+    the noise off, at frame 12 the port's trajectory is 5.3e-4 from float64
+    and the JAX package's 3.6e-4 (growing from ~1e-5 at frame 3), so the
+    two can sit 8.9e-4 apart on rounding alone; the depth losses are 2e-6 /
+    1e-6 from float64 at frame 1 and up to 1.14e-3 / 4.0e-4 from frame 3 on,
+    where a rounding-level gradient moves a weight by Adam's whole step
+    (measured on the CPU, one thread)."""
+    import tpuslam.train.steps as jax_steps
+    import tpuslam_torch.slam.slam as slam_module
+
+    total_loss = jax_steps.total_loss
+    monkeypatch.setattr(jax_steps, "total_loss",
+                        lambda *args, **kwargs: total_loss(*args, **{**kwargs, "rng": None}))
     jslam, slam = _slams(tmp_path, adaptation=True, depth=2)
-    jlog, log = (_log_searches(s.loop_closure_detection) for s in (jslam, slam))
+    slam.state.rng = None
+    ref, make_batch64 = _float64_slam(tmp_path, jslam)
+    logs = [_log_searches(s.loop_closure_detection) for s in (jslam, slam, ref)]
     jslam.run(max_steps=12, progress=False)
     slam.run(max_steps=12, progress=False)
+    monkeypatch.setattr(slam_module, "make_frame_batch", make_batch64)
+    ref.run(max_steps=12, progress=False)
     assert not slam._retire_queue and slam.pose_graph.vertex_ids == list(range(13))
-    _clear_of_threshold(jlog + log, THRESHOLD)
-    assert slam.replay_composition == jslam.replay_composition
-    assert _edges(slam) == _edges(jslam) and slam.pose_graph.num_loop_closures >= 1
-    np.testing.assert_allclose(slam.trajectory(), jslam.trajectory(), atol=1e-3)
-    np.testing.assert_allclose(slam.depth_loss, jslam.depth_loss, rtol=1e-3)
+    _clear_of_threshold(logs[0] + logs[1], THRESHOLD)
+    assert slam.replay_composition == jslam.replay_composition == ref.replay_composition
+    assert _edges(slam) == _edges(jslam) == _edges(ref) and slam.pose_graph.num_loop_closures >= 1
+    want = ref.trajectory()
+    for side in (slam, jslam):
+        np.testing.assert_allclose(side.trajectory(), want, atol=1e-3)
+        np.testing.assert_allclose(side.depth_loss, ref.depth_loss, rtol=2e-3)
 
 
 def test_pipeline_depth_inference_exact(tmp_path):

@@ -10,6 +10,8 @@ scales (0, 1), batch 2, float32 networks, the plain sampler (the pretrainers'
 default).  The tie-break noise is off on both sides (the JAX package's
 `total_loss` is called with `rng=None`, a test-side patch).
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from tpuslam.checkpoint.torch_import import init_encoders_from_imagenet as jax_i
 from tpuslam.checkpoint.torch_import import load_imagenet_encoders as jax_imagenet
 from tpuslam.data import SyntheticDataset as JaxSynthetic
 from tpuslam.models import DepthPoseNet as JaxNet
-from tpuslam_torch.checkpoint.from_jax import _resnet_keys, jax_to_state_dict
+from tpuslam_torch.checkpoint.from_jax import _resnet_keys, jax_to_state_dict, load_jax_variables
 from tpuslam_torch.checkpoint.io import OPTIMIZER_MISMATCH
 from tpuslam_torch.checkpoint.torch_import import MISSING_WEIGHTS, load_imagenet_encoders
 from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig
@@ -126,10 +128,17 @@ def test_batches_from_gives_the_same_order():
 def test_train_epochs_match(trained):
     """Each step's loss of two epochs (3 steps each) within 1e-4 relative,
     the parameters afterwards within 1e-3 (Adam's sign-like first steps,
-    `test_torch_port_train.py`), the BN running statistics within 1e-4 (as
+    `test_torch_port_train.py`), the BN running statistics within 2e-4 (as
     one vector, after six steps of drifting weights; one step is held to
-    1e-5 per element there), and
-    the StepLR rate of each epoch: 1e-5, then 1e-6 at step size 2."""
+    1e-5 per element there), and the StepLR rate of each epoch: 1e-5, then
+    1e-6 at step size 2.
+
+    The statistics' bound is their measured gap: against a float64 run of
+    the port's pretrainer over the same two epochs, the port's are 8.1e-5
+    off and the JAX package's 1.52e-4, so the two sit 1.55e-4 apart on
+    float32 rounding through Adam's steps (the parameters: 1.6e-5 and
+    2.9e-5 off float64; measured on the CPU, one thread, as
+    `test_pretrainers_against_float64` computes them)."""
     losses = trained["losses"]
     assert len(losses["port"]) == len(losses["jax"]) == 6
     assert _rel(losses["port"], losses["jax"]) < 1e-4
@@ -142,7 +151,7 @@ def test_train_epochs_match(trained):
                 np.concatenate([want[k].ravel() for k in params])) < 1e-3
     stats = [k for k in want if "running" in k]
     assert _rel(np.concatenate([got[k].ravel() for k in stats]),
-                np.concatenate([want[k].ravel() for k in stats])) < 1e-4
+                np.concatenate([want[k].ravel() for k in stats])) < 2e-4
     assert trained["lrs"]["port"] == pytest.approx(trained["lrs"]["jax"], rel=1e-6)
     assert trained["lrs"]["port"] == pytest.approx([1e-5, 1e-6])
     assert trained["port"].epoch == 2 and trained["port"].state.step == 6
@@ -168,15 +177,81 @@ def test_validate_matches(trained, capsys):
 
 
 def test_compute_depth_error_matches(trained):
-    """Median-scaled depth metrics over the synthetic world's ground truth
-    within 1e-4 relative."""
-    got = trained["port"].compute_depth_error(
-        SyntheticDataset(num_frames=3, height=H, width=W, seed=1))
-    want = trained["jax"].compute_depth_error(JaxSynthetic(num_frames=3, height=H, width=W,
-                                                           seed=1))
+    """Median-scaled depth metrics over the synthetic world's ground truth,
+    computed by both packages on the same weights (the JAX pretrainer's
+    after its two epochs, loaded into a port pretrainer), within 1e-4
+    relative.
+
+    Not on each package's own trained weights: after Adam's six steps those
+    are 2.8e-5 apart (the port's 1.6e-5 and the JAX package's 2.9e-5 from a
+    float64 run of the port's pretrainer), and the metrics amplify that:
+    abs_rel moves by 1.4e-4 and sq_rel by 2.7e-4 between the packages, the
+    port 4.8e-5 / 9.0e-5 above the float64 run's values and the JAX package
+    9.0e-5 / 1.8e-4 below them (measured on the CPU, one thread, as
+    `test_pretrainers_against_float64` computes them)."""
+    jtr = trained["jax"]
+    port = Pretrainer(**KW, log_path=trained["root"] / "depth_error", device="cpu")
+    load_jax_variables(port.state.model, jtr.state.params, jtr.state.batch_stats)
+    got = port.compute_depth_error(SyntheticDataset(num_frames=3, height=H, width=W, seed=1))
+    want = jtr.compute_depth_error(JaxSynthetic(num_frames=3, height=H, width=W, seed=1))
     assert set(got) == set(want) and got
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-6), k
+
+
+def test_pretrainers_against_float64(trained, tmp_path, monkeypatch):
+    """Both pretrainers' two epochs against the port's pretrainer run in
+    float64 over the same batches (networks, batches and images to predict
+    depth on; the tie-break noise off): the parameters within 1e-4 relative
+    (as one vector), the BN statistics within 1.5e-4 for the port (measured
+    8.1e-5) and 3e-4 for the JAX package (measured 1.52e-4), and abs_rel
+    and sq_rel within 3e-4 relative.  This is the measurement behind the
+    bounds of `test_train_epochs_match` and
+    `test_compute_depth_error_matches`."""
+    import dataclasses
+
+    import tpuslam_torch.train.pretrain as port_pretrain
+    from tpuslam_torch.train.steps import predict_depth_step
+
+    make_batch = port_pretrain.make_frame_batch
+
+    def make_batch64(*args, **kwargs):
+        b = make_batch(*args, **kwargs)
+        rgb = {k: getattr(b, k).double() / 255 for k in ("rgb", "rgb_aug")}
+        rest = {f.name: getattr(b, f.name).double() for f in dataclasses.fields(b)
+                if f.name not in rgb and getattr(b, f.name) is not None}
+        return dataclasses.replace(b, **rgb, **rest)
+
+    monkeypatch.setattr(port_pretrain, "make_frame_batch", make_batch64)
+    ref = Pretrainer(**KW, log_path=tmp_path, device="cpu")
+    ref.state.rng = None
+    ref.state.model.double()
+    ref._depth = lambda image: predict_depth_step(
+        ref.state.model, torch.from_numpy(np.asarray(image[None], np.float64)),
+        ref.cfg.min_depth, ref.cfg.max_depth)[0]
+    for _ in range(2):
+        ref.train_epoch(SyntheticDataset(num_frames=6, height=H, width=W, do_augmentation=True),
+                        progress=False)
+    want = _port_state(ref)
+    jstate = trained["jax"].state
+    sides = {"port": _port_state(trained["port"]),
+             "jax": jax_to_state_dict(jax.tree_util.tree_map(np.asarray, jstate.params),
+                                      jax.tree_util.tree_map(np.asarray, jstate.batch_stats))}
+    params = [k for k in want if "running" not in k]
+    stats = [k for k in want if "running" in k]
+    for name, got in sides.items():
+        for keys, limit in ((params, 1e-4), (stats, 1.5e-4 if name == "port" else 3e-4)):
+            err = _rel(np.concatenate([got[k].ravel() for k in keys]),
+                       np.concatenate([want[k].ravel() for k in keys]))
+            assert err < limit, (name, keys[0], err)
+    depth64 = ref.compute_depth_error(SyntheticDataset(num_frames=3, height=H, width=W, seed=1))
+    depth = {"port": trained["port"].compute_depth_error(
+                 SyntheticDataset(num_frames=3, height=H, width=W, seed=1)),
+             "jax": trained["jax"].compute_depth_error(
+                 JaxSynthetic(num_frames=3, height=H, width=W, seed=1))}
+    for name, got in depth.items():
+        for k in ("abs_rel", "sq_rel"):
+            assert got[k] == pytest.approx(depth64[k], rel=3e-4), (name, k)
 
 
 def test_save_load_resume(trained, tmp_path):
@@ -231,7 +306,10 @@ def test_jax_written_checkpoint_loads(trained, capsys):
 
 
 def test_data_parallel_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: DDP"):
+    """`dp_devices=2` outside a process group of two ranks raises a clear
+    error, as the JAX package's `make_mesh` does without the devices
+    (`tests/test_torch_port_parallel.py` trains inside one)."""
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks.*have 1"):
         Pretrainer(**KW, dp_devices=2, device="cpu")
 
 
@@ -275,11 +353,13 @@ def test_imagenet_encoders_match_jax(tmp_path):
         load_imagenet_encoders(model, path)
 
 
-def test_predictor_train_and_validate(tmp_path):
+def test_predictor_train_and_validate(tmp_path, capsys):
     """`DepthPosePrediction.train` pretrains the facade's networks, encoders
     included (one epoch, its checkpoint written), and adaptation then starts
     from them; `validate` gives a finite mean loss, NaN on a split without a
-    full batch.  (The JAX package's train() fails at its first epoch:
+    full batch; `use_wandb=True` logs each epoch's record to
+    `log_path/metrics.jsonl` (wandb is not installed here: the JAX
+    package's line says so).  (The JAX package's train() fails at its first epoch:
     ROADMAP Queue 3, reference traps.)"""
     cfg = DepthPoseConfig(batch_size=B, scales=SCALES, dtype="float32", log_path=tmp_path,
                           num_epochs=1, scheduler_step_size=1)
@@ -299,8 +379,12 @@ def test_predictor_train_and_validate(tmp_path):
     val = pred.validate(SyntheticDataset(num_frames=4, height=H, width=W, seed=1))
     assert np.isfinite(val)
     assert np.isnan(pred.validate([data[0]]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: profiling"):
-        pred.train(data, use_wandb=True)
+    capsys.readouterr()
+    pred.train(data, num_epochs=1, use_wandb=True)
+    assert "metrics: wandb requested but not installed; JSONL only" in capsys.readouterr().out
+    records = [json.loads(line) for line in
+               (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [1] and np.isfinite(records[0]["training_loss"])
 
 
 def test_cli_pretrain_writes_checkpoints(tmp_path, capsys):

@@ -203,14 +203,23 @@ def run(request):
 
 
 # Relative error allowed between the two packages' gradients of each
-# encoder (all its parameters as one vector).  Batch norm in train mode over
-# a few values per channel in the deep layers (4 per channel in layer 4 of
-# the depth encoder at 32 x 64, batch 2) amplifies float32 rounding, and each
-# package is that far from the float64 value of the same step
-# (`test_gradients_against_float64`): the depth encoder 6e-5 (both packages)
-# at 32 x 64 and 8e-4 / 1.3e-3 (port / JAX) at 48 x 384; the pose encoder
-# 2.6e-5 / 3.4e-3 at 32 x 64 and 5.4e-3 / 4.5e-4 at 48 x 384.  The decoders'
-# gradients stay within 6e-5 of float64 on both sides and are held to 1e-4.
+# network (all its parameters as one vector), and between either package's
+# float32 gradient and the float64 one of the same step
+# (`test_gradients_against_float64`).  Batch norm in train mode over a few
+# values per channel in the deep layers (4 per channel in layer 4 of the
+# depth encoder at 32 x 64, batch 2) amplifies float32 rounding in the
+# encoders: measured from float64 (port / JAX), the depth encoder 5.8e-5 /
+# 6.8e-5 at 32 x 64 and 8.0e-4 / 8.0e-4 at 48 x 384; the pose encoder
+# 2.7e-5 / 3.4e-3 at 32 x 64 (1.3e-3 for JAX with `mask_dynamic`) and
+# 5.4e-3 / 1.1e-3 at 48 x 384.  The decoders stay within 1.6e-5 of float64
+# on both sides at 32 x 64; at 48 x 384 the JAX package's pose decoder
+# (its Pallas warp in interpret mode) is 1.2e-4 from float64 and the port's
+# 4.9e-5, so the two packages differ by 1.24e-4 there.
+DECODER_TOL = {
+    "plain": {"depth_decoder": 1e-4, "pose_decoder": 1e-4},
+    "mask_dynamic": {"depth_decoder": 1e-4, "pose_decoder": 1e-4},
+    "pallas_warp": {"depth_decoder": 1e-4, "pose_decoder": 3e-4},
+}
 ENCODER_TOL = {
     "plain": {"depth_encoder": 1e-4, "pose_encoder": 1e-2},
     "mask_dynamic": {"depth_encoder": 1e-4, "pose_encoder": 1e-2},
@@ -219,16 +228,16 @@ ENCODER_TOL = {
 
 
 def test_train_step_losses_and_gradients(run):
-    """Every loss term within 1e-5 relative; the gradient of each decoder
-    (all its parameters as one vector) within 1e-4 relative, of each encoder
-    within `ENCODER_TOL`; every parameter has a gradient, encoders and their
+    """Every loss term within 1e-5 relative; the gradient of each network
+    (all its parameters as one vector) within `DECODER_TOL` /
+    `ENCODER_TOL`; every parameter has a gradient, encoders and their
     batch-norm scale and bias included; the model back in eval mode after
     the step."""
     route, r = run
     for k, want in r["jlosses"].items():
         assert _rel(r["tlosses"][k], want) < 1e-5, (route, k)
     assert set(r["grads"]) == {k for k in r["jgrads"] if "running" not in k}
-    tol = {"depth_decoder": 1e-4, "pose_decoder": 1e-4, **ENCODER_TOL[route]}
+    tol = {**DECODER_TOL[route], **ENCODER_TOL[route]}
     for net, limit in tol.items():
         keys = [k for k in r["grads"] if k.startswith(net)]
         err = _rel(np.concatenate([r["grads"][k].ravel() for k in keys]),
@@ -243,9 +252,9 @@ def test_train_step_losses_and_gradients(run):
 def test_gradients_against_float64(run):
     """Both packages' float32 gradients against the port's float64 gradient
     of the same step (the port run in float64 end to end): each network
-    within the bound `ENCODER_TOL` and the decoders' 1e-4 set for the two
-    packages' difference, so that those bounds are the float32 rounding of
-    the step, of either package, and not a difference between them."""
+    within the bound `DECODER_TOL` / `ENCODER_TOL` set for the two packages'
+    difference, so that those bounds are the float32 rounding of the step,
+    of either package, and not a difference between them."""
     route, r = run
     b = r["batch"]
     to64 = {f.name: getattr(b, f.name).double() for f in dataclasses.fields(b)
@@ -262,7 +271,7 @@ def test_gradients_against_float64(run):
     losses["loss"].backward()
     g64 = {k: (torch.zeros_like(p) if p.grad is None else p.grad).numpy()
            for k, p in model.named_parameters()}
-    tol = {"depth_decoder": 1e-4, "pose_decoder": 1e-4, **ENCODER_TOL[route]}
+    tol = {**DECODER_TOL[route], **ENCODER_TOL[route]}
     for net, limit in tol.items():
         keys = [k for k in g64 if k.startswith(net)]
         want = np.concatenate([g64[k].ravel() for k in keys])

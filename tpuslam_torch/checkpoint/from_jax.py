@@ -7,6 +7,11 @@ kernels transpose HWIO -> OIHW; BatchNorm scale / bias / mean / var map to
 weight / bias / running_mean / running_var.  The torch names are the
 monodepth2 state-dict keys that `tpuslam/checkpoint/torch_import.py` reads,
 so the name table below is the inverse of that importer.
+
+`mobilenet_state_dict(params, batch_stats)` does the same for the JAX
+package's `MobileNetV3SmallEmbedder` variables, giving the torchvision keys
+of `tpuslam_torch.models.embedder.MobileNetV3SmallEmbedder` (the inverse of
+`import_mobilenet_v3_small`).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.models.depth_pose import DepthPoseNet
+from tpuslam_torch.models.embedder import STEM_CHANNELS, V3_SMALL
 
 
 def _resnet_keys(flax_params: Mapping, flax_stats: Mapping, prefix: str) -> Dict[str, Any]:
@@ -93,3 +99,40 @@ def load_jax_variables(model: DepthPoseNet, params: Mapping, batch_stats: Mappin
             if tuple(state[key].shape) != value.shape:
                 raise ValueError(f"{key}: model {tuple(state[key].shape)} vs {value.shape}")
             state[key].copy_(torch.from_numpy(value))
+
+
+def mobilenet_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, np.ndarray]:
+    """Flax `MobileNetV3SmallEmbedder` variables -> its torchvision-keyed
+    state dict (float32 numpy arrays, no `num_batches_tracked`)."""
+    out: Dict[str, Any] = {}
+
+    def conv(dst: str, leaf: Mapping):
+        out[f"{dst}.weight"] = np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)
+        if "bias" in leaf:
+            out[f"{dst}.bias"] = leaf["bias"]
+
+    def conv_bn(dst: str, p: Mapping, s: Mapping, conv_name: str, bn_name: str):
+        conv(f"{dst}.0", p[conv_name])
+        out[f"{dst}.1.weight"] = p[bn_name]["scale"]
+        out[f"{dst}.1.bias"] = p[bn_name]["bias"]
+        out[f"{dst}.1.running_mean"] = s[bn_name]["mean"]
+        out[f"{dst}.1.running_var"] = s[bn_name]["var"]
+
+    conv_bn("features.0", params, batch_stats, "stem", "stem_bn")
+    cin = STEM_CHANNELS
+    for i, (_, expanded, cout, use_se, _, _) in enumerate(V3_SMALL):
+        p, s = params[f"block_{i}"], batch_stats[f"block_{i}"]
+        src, j = f"features.{i + 1}.block", 0
+        if expanded != cin:
+            conv_bn(f"{src}.{j}", p, s, "expand", "expand_bn")
+            j += 1
+        conv_bn(f"{src}.{j}", p, s, "dw", "dw_bn")
+        j += 1
+        if use_se:
+            conv(f"{src}.{j}.fc1", p["se"]["fc1"])
+            conv(f"{src}.{j}.fc2", p["se"]["fc2"])
+            j += 1
+        conv_bn(f"{src}.{j}", p, s, "project", "project_bn")
+        cin = cout
+    conv_bn("features.12", params, batch_stats, "head", "head_bn")
+    return {k: np.array(v, np.float32) for k, v in out.items()}

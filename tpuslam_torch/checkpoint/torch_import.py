@@ -1,13 +1,18 @@
-"""ImageNet initialisation of the encoders from a local torchvision ResNet.
+"""ImageNet initialisation of the encoders from a local torchvision ResNet,
+and the loop-closure embedder from a local torchvision MobileNetV3-small.
 
-Counterpart of `tpuslam/checkpoint/torch_import.py::load_imagenet_encoders`
-and `init_encoders_from_imagenet`.  The reference starts pretraining from
+Counterpart of `tpuslam/checkpoint/torch_import.py::load_imagenet_encoders`,
+`init_encoders_from_imagenet` and `load_mobilenet_embedder`.  The reference starts pretraining from
 encoders built with `pretrained=True`: one torchvision ResNet checkpoint
 initialises both encoders, the depth encoder as it is and the 2-image pose
 encoder with its stem `conv1` repeated over the stacked input channels and
 divided by 2, so that activations keep their single-image magnitude.  The
 classifier (`fc.*`) is dropped.  The port's encoders carry torchvision's key
 names under `resnet.`, so the state dict loads without renaming.
+
+`load_mobilenet_embedder` reads a torchvision `mobilenet_v3_small` `.pth`
+(with or without a `state_dict` wrapper) into `MobileNetV3SmallEmbedder`,
+whose modules carry torchvision's names; the classifier is ignored.
 
 Only a local `.pth` is read (torchvision is not needed, nothing is
 downloaded).  Reference `weights_NNN/` folders load through
@@ -21,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from tpuslam_torch.models.depth_pose import DepthPoseNet
+from tpuslam_torch.models.embedder import MobileNetV3SmallEmbedder
 
 MISSING_WEIGHTS = (
     "resnet_pretrained=True requires encoder_weights pointing at a local torchvision "
@@ -71,3 +77,21 @@ def init_encoders_from_imagenet(model: DepthPoseNet, encoder_weights: Optional[P
             raise FileNotFoundError(MISSING_WEIGHTS)
         return
     load_imagenet_encoders(model, encoder_weights)
+
+
+def load_mobilenet_embedder(path: Path, device="cpu") -> MobileNetV3SmallEmbedder:
+    """A torchvision `mobilenet_v3_small` `.pth` -> the embedder on `device`,
+    in eval mode.  Every key of the backbone must be there (torchvision
+    checkpoints before v0.4 lack `num_batches_tracked`); `classifier.*` is
+    ignored, and any other key raises KeyError."""
+    state = torch.load(Path(path), map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    model = MobileNetV3SmallEmbedder()
+    result = model.load_state_dict(state, strict=False)
+    missing = [k for k in result.missing_keys if not k.endswith("num_batches_tracked")]
+    unexpected = [k for k in result.unexpected_keys if not k.startswith("classifier.")]
+    if missing or unexpected:
+        raise KeyError(f"not a mobilenet_v3_small state dict: missing {missing[:5]}, "
+                       f"unexpected {unexpected[:5]}")
+    return model.to(device).eval()

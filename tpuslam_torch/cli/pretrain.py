@@ -9,15 +9,27 @@ Counterpart of `tpuslam/cli/pretrain.py`, with the same flags plus
 Trains the depth and pose networks on the configured dataset (Cityscapes,
 Kitti or Synthetic) and writes the `Pretrainer`'s checkpoint folders under
 the config's `log_path` (`models/weights_NNN/`, `models/best.yaml`).
-`--dp N` above 1 asks for data-parallel pretraining, which the port does not
-have yet: it raises NotImplementedError.
+
+`--dp N` above 1 trains data-parallel on N cards (N processes started here,
+one per card, over NCCL), or with `--device cpu` in N processes over gloo:
+
+    python -m tpuslam_torch.cli.pretrain --config <yaml> --dp 2
+
+The batch size must be a multiple of N.  Rank 0 alone validates, writes the
+checkpoints and prints.
 """
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
 
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from tpuslam_torch import resolve_device
 from tpuslam_torch.config import parse_config
+from tpuslam_torch.parallel import local_init_method, make_process_group
 from tpuslam_torch.train.pretrain import Pretrainer
 
 
@@ -84,6 +96,40 @@ def make_pretrainer(cfg, device="cuda", dp_devices=None) -> Pretrainer:
     )
 
 
+def _train(cfg, epochs, device, dp_devices) -> None:
+    pc = cfg.depth_pose
+    trainer = make_pretrainer(cfg, device, dp_devices)
+    train_ds = build_dataset(cfg, "train")
+    try:
+        val_ds = build_dataset(cfg, "val")
+    except Exception:
+        val_ds = None
+    if trainer.rank == 0:
+        print(f"pretrain: {len(train_ds)} train samples, dp={trainer.dp_devices}")
+    trainer.fit(
+        train_ds,
+        val_ds,
+        num_epochs=epochs if epochs is not None else pc.num_epochs,
+        save_frequency=pc.save_frequency,
+        validate=val_ds is not None,
+        depth_error=val_ds is not None,
+        save_val_depth=(
+            max(1, pc.save_val_depth_batches) * pc.batch_size
+            if pc.save_val_depth
+            else 0
+        ),
+    )
+
+
+def _rank(rank: int, world: int, init_method: str, config: Path, epochs, device) -> None:
+    """One rank of `--dp`: join the group, train, leave the group."""
+    device = make_process_group(world, rank, device, init_method)
+    try:
+        _train(parse_config(config), epochs, device, world)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="tpuslam_torch pretraining")
     ap.add_argument("--config", required=True, type=Path)
@@ -94,27 +140,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = parse_config(args.config)
-    pc = cfg.depth_pose
-    trainer = make_pretrainer(cfg, args.device, args.dp)
-    train_ds = build_dataset(cfg, "train")
-    try:
-        val_ds = build_dataset(cfg, "val")
-    except Exception:
-        val_ds = None
-    print(f"pretrain: {len(train_ds)} train samples, dp={trainer.dp_devices}")
-    trainer.fit(
-        train_ds,
-        val_ds,
-        num_epochs=args.epochs if args.epochs is not None else pc.num_epochs,
-        save_frequency=pc.save_frequency,
-        validate=val_ds is not None,
-        depth_error=val_ds is not None,
-        save_val_depth=(
-            max(1, pc.save_val_depth_batches) * pc.batch_size
-            if pc.save_val_depth
-            else 0
-        ),
-    )
+    dp = args.dp if args.dp is not None else cfg.depth_pose.dp_devices
+    if dp <= 1:
+        _train(cfg, args.epochs, args.device, dp)
+        return 0
+    if resolve_device(args.device).type == "cuda" and dp > torch.cuda.device_count():
+        raise ValueError(f"--dp {dp} needs {dp} cards, have {torch.cuda.device_count()}")
+    mp.spawn(_rank, args=(dp, local_init_method(), args.config, args.epochs, args.device),
+             nprocs=dp)
     return 0
 
 

@@ -16,12 +16,17 @@ batch statistics, as torch does, but moves its running statistics by
 flax's rule, which differs from `nn.BatchNorm2d`'s: the running variance
 takes the biased batch variance (torch takes the unbiased one, n / (n - 1)
 larger, up to 4 / 3 on small maps), computed in float32 under autocast.
+With a `process_group` set (data-parallel pretraining,
+`tpuslam_torch.parallel`), train mode normalises with the statistics of the
+batch of every rank of the group, and the running statistics move by the
+same rule with the global mean and biased variance.
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
@@ -31,20 +36,74 @@ RESNET_STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 ENCODER_CHANNELS = (64, 64, 128, 256, 512)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Batch norm over the batches of every rank of `group` (flax's sync-BN,
+    `axis_name` psums): the forward normalises with the global mean and
+    biased variance, from an all-reduce of the per-channel sums and counts
+    and then one of the per-channel sums of squares about that mean (two
+    passes, as a single process takes them); the backward all-reduces its
+    two per-channel sums, so that each rank's input gradient is the one of
+    the global batch.  The scale and bias get this rank's own terms, which
+    the data-parallel step averages with the other gradients.  Works in
+    float32 (float64 for a float64 input); returns the output in the
+    input's type, and the global mean and variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = at_least_f32(x)
+        C = x.shape[1]
+        sums = torch.cat([xf.sum((0, 2, 3)), xf.new_full((1,), xf.numel() // C)])
+        dist.all_reduce(sums, group=group)
+        n = sums[C]
+        mean = sums[:C] / n
+        centred = xf - mean[:, None, None]
+        var = (centred * centred).sum((0, 2, 3))
+        dist.all_reduce(var, group=group)
+        var /= n
+        invstd = torch.rsqrt(var + eps)
+        xhat = centred * invstd[:, None, None]
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.n, ctx.group = n, group
+        ctx.mark_non_differentiable(mean, var)
+        y = xhat * weight[:, None, None] + bias[:, None, None]
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight = ctx.saved_tensors
+        dyf = dy.to(xhat.dtype)
+        C = xhat.shape[1]
+        sums = torch.cat([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        grad_bias, grad_weight = sums[:C].clone(), sums[C:].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy, mean_dy_xhat = sums[:C] / ctx.n, sums[C:] / ctx.n
+        dx = (dyf - mean_dy[:, None, None] - xhat * mean_dy_xhat[:, None, None]) \
+            * (invstd * weight)[:, None, None]
+        return (dx.to(dy.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype),
+                None, None)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax `BatchNorm(momentum=0.9, epsilon=1e-5)`: in train mode the
     running statistics become 0.9 * running + 0.1 * batch statistic, with
-    the biased variance; eval mode is `nn.BatchNorm2d`'s."""
+    the biased variance; eval mode is `nn.BatchNorm2d`'s.  With
+    `process_group` set, the batch is that of every rank of the group."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.process_group is not None:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                self.process_group)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3), correction=0)
         with torch.no_grad():
-            var, mean = torch.var_mean(at_least_f32(x), dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)
             self.num_batches_tracked.add_(1)

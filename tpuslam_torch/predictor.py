@@ -9,11 +9,11 @@ which also reads the JAX package's), and the import of a reference
 `weights_NNN/` folder.  The warp of every step is routed by the `pallas_*`
 flags of the config, as in `Slam`.
 
-Pretraining (`train`) runs the port's `Pretrainer` on the facade's networks;
-`validate` is the mean no-grad loss over a split.  ImageNet encoders come
-from a local torchvision `.pth` (`encoder_weights`, `resnet_pretrained`).
-Not ported yet, and refused with NotImplementedError: `train(use_wandb=True)`
-(its logger, `utils/profiling.py`, is ROADMAP.md Queue 1: profiling).
+Pretraining (`train`) runs the port's `Pretrainer` on the facade's networks
+(`use_wandb` logs each epoch's record to `log_path/metrics.jsonl` through
+`MetricsLogger`, and to wandb where it is installed); `validate` is the
+mean no-grad loss over a split.  ImageNet encoders come from a local
+torchvision `.pth` (`encoder_weights`, `resnet_pretrained`).
 
 Images are NHWC float32 in [0, 1] (numpy arrays or tensors); a single image
 may omit the batch dimension.  Runs on the card unless `device="cpu"`.
@@ -51,9 +51,7 @@ from tpuslam_torch.train.steps import (
     predict_depth_step,
     predict_pose_step,
 )
-
-_NO_WANDB = ("train(use_wandb=True) needs MetricsLogger (utils/profiling.py), not ported to "
-             "tpuslam_torch yet (ROADMAP.md Queue 1: profiling)")
+from tpuslam_torch.utils.profiling import MetricsLogger
 
 
 def _untrained_warning(trained: bool) -> None:
@@ -127,9 +125,10 @@ class DepthPosePrediction:
         Adam over the decoders.  (The JAX package's train() hands its
         pretrainer the adaptation state, whose optax state has no learning
         rate to set, and fails at the first epoch.)"""
-        if use_wandb:
-            raise NotImplementedError(_NO_WANDB)
         c = self.config
+        logger = None
+        if use_wandb:
+            logger = MetricsLogger(self.log_path / "metrics.jsonl", use_wandb=True)
         trainer = Pretrainer(
             height=self.height, width=self.width, scales=c.scales,
             learning_rate=c.learning_rate, scheduler_step_size=c.scheduler_step_size,
@@ -145,8 +144,10 @@ class DepthPosePrediction:
                 train_dataset, val_dataset,
                 num_epochs=num_epochs if num_epochs is not None else c.num_epochs,
                 save_frequency=c.save_frequency, validate=validate, depth_error=depth_error,
+                log_fn=None if logger is None else logger.log,
                 save_val_depth=(max(1, c.save_val_depth_batches) * c.batch_size
                                 if c.save_val_depth else 0),
+                image_logger=logger,
             )
         finally:
             self.model.requires_grad_(False)

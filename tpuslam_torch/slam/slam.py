@@ -35,8 +35,10 @@ reversing; odometry covariance diag(1, 1, .1, 1, 1, .1), loop edges weighted
 every `keyframe_frequency` steps while step < 4000, with a cooldown of
 `lc_distance_poses`; `start_frame` gates the mapping.
 
-Not ported yet, and refused with NotImplementedError rather than ignored:
-the MobileNet embedder.
+Loop closures search the depth encoder's pooled stage-4 feature of the frame
++1 image, which the step packs into its readback, or, with `embedder:
+mobilenet`, the MobileNetV3-small embedding of that image: one more forward
+per frame, made at the frame's dispatch and copied back with its readback.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ import torch
 
 from tpuslam_torch import resolve_device
 from tpuslam_torch.checkpoint.io import load_checkpoint, save_checkpoint
+from tpuslam_torch.checkpoint.torch_import import load_mobilenet_embedder
 from tpuslam_torch.config.schema import Config
 from tpuslam_torch.data.base import Sample
 from tpuslam_torch.data.kitti import KittiOdometry
@@ -62,6 +65,7 @@ from tpuslam_torch.eval.trajectory import calc_error, rotation_error, translatio
 from tpuslam_torch.loopclosure import LoopClosureDetection
 from tpuslam_torch.memory.replay_buffer import ReplayBuffer
 from tpuslam_torch.models.depth_pose import DepthPoseNet, init_depth_pose
+from tpuslam_torch.models.embedder import init_mobilenet_embedder
 from tpuslam_torch.posegraph.graph import PoseGraph
 from tpuslam_torch.train.batch import FrameBatch, concat_batches, make_frame_batch, pad_batch
 from tpuslam_torch.train.state import (
@@ -90,16 +94,8 @@ def _odometry_information() -> np.ndarray:
     return np.linalg.inv(cov)
 
 
-def _refuse_unported(config: Config) -> None:
-    if config.loop_closure.embedder == "mobilenet":
-        raise NotImplementedError(
-            "loop_closure.embedder: mobilenet is not ported to tpuslam_torch yet "
-            "(ROADMAP.md Queue 1: the MobileNet embedder)")
-
-
 class Slam:
     def __init__(self, config: Config, dataset=None, device="cuda"):
-        _refuse_unported(config)
         self.device = resolve_device(device)
         self.config = config
         sc, dc, pc = config.slam, config.dataset, config.depth_pose
@@ -197,13 +193,30 @@ class Slam:
         else:
             self.replay_buffer = None
 
-        # loop closures on the depth encoder's 512-d pooled stage-4 feature
+        # loop closures on the depth encoder's 512-d pooled stage-4 feature,
+        # or on the 576-d MobileNetV3-small embedding
         lc = config.loop_closure
+        self._mobilenet = None
+        if lc.embedder == "mobilenet":
+            if lc.embedder_weights is not None and Path(lc.embedder_weights).exists():
+                self._mobilenet = load_mobilenet_embedder(lc.embedder_weights, self.device)
+                print(f"slam: loaded mobilenet embedder from {lc.embedder_weights}")
+            else:
+                self._mobilenet = init_mobilenet_embedder(1, self.device)
+                print(
+                    "slam: WARNING — mobilenet LC embedder is randomly initialised "
+                    "(no embedder_weights); detection_threshold "
+                    f"{lc.detection_threshold} is calibrated for ImageNet features "
+                    "(reference loop_closure_detection/encoder.py:28-33)"
+                )
+        # the step packs the depth-encoder loop-closure embedding only when
+        # it is the one searched
+        self._lc_in_step = self.do_loop_closures and self._mobilenet is None
         self.loop_closure_detection = LoopClosureDetection(
             detection_threshold=lc.detection_threshold,
             id_threshold=lc.id_threshold,
             num_matches=lc.num_matches,
-            num_features=512,
+            num_features=512 if self._mobilenet is None else self._mobilenet.num_features,
         )
         self.lc_edge_diagnostics: List[dict] = []
         # frame +1 images of loop-closure candidates, least recently used first
@@ -312,7 +325,7 @@ class Slam:
             if self._pending is not None and self._update_done():
                 self._adopt()
             losses, outputs = eval_step(self.model, self.loss_cfg, online,
-                                        with_lc_embedding=self.do_loop_closures)
+                                        with_lc_embedding=self._lc_in_step)
             if self._pending is None:
                 training = self._training_batch(online, sample)
                 self._pending = consolidate_step_async(
@@ -323,14 +336,18 @@ class Slam:
             training = self._training_batch(online, sample)
             losses, outputs = adapt_step(
                 self.state, self.loss_cfg, training,
-                num_steps=self.adaptation_epochs, with_lc_embedding=self.do_loop_closures,
+                num_steps=self.adaptation_epochs, with_lc_embedding=self._lc_in_step,
             )
         else:
             losses, outputs = eval_step(self.model, self.loss_cfg, online,
-                                        with_lc_embedding=self.do_loop_closures)
+                                        with_lc_embedding=self._lc_in_step)
         if (self.use_expert and self.replay_buffer is not None
                 and len(self.replay_buffer) > 0 and step_id % self.generalist_interval == 0):
             self._consolidate_generalist()
+        if (self._mobilenet is not None and self.do_loop_closures
+                and step_id >= self.start_frame):
+            outputs[("mobilenet_embedding",)] = self._mobilenet.embed(
+                self._to_device(sample.rgb[2][None]))
         entry = {"kind": "full", "step_id": step_id, "sample": sample,
                  "losses": losses, "outputs": outputs}
         self._start_host_copies(entry)
@@ -401,7 +418,8 @@ class Slam:
         if entry["kind"] == "skip":
             reads = {"embedding": outputs.get(("embedding",))}
         else:
-            reads = {"packed": outputs[("retire_packed",)]}
+            reads = {"packed": outputs[("retire_packed",)],
+                     "mobilenet": outputs.get(("mobilenet_embedding",))}
             if self.logging and entry["sample"].depth is not None:
                 reads["depth"] = outputs[("depth", 0)][0, ..., 0]
         host = {}
@@ -460,8 +478,11 @@ class Slam:
                                      information=_odometry_information())
 
         if self.do_loop_closures and step_id >= self.start_frame:
-            # the packed vector ends with the frame +1 loop-closure embedding
-            self.loop_closure_detection.add(step_id, flat[19 + D:])
+            # the frame +1 loop-closure embedding: the end of the packed
+            # vector, or the MobileNet one copied beside it
+            lc_embedding = flat[19 + D:] if host["mobilenet"] is None else \
+                host["mobilenet"][0].numpy()
+            self.loop_closure_detection.add(step_id, lc_embedding)
             optimized = False
             if (step_id % self.keyframe_frequency == 0 and step_id < LC_MAX_STEP
                     and self.since_last_loop_closures > self.lc_distance_poses):

@@ -11,8 +11,12 @@ A background thread stacks the next batches as numpy arrays (`Prefetcher`);
 the training thread copies each to the device.  `batches_from` draws the
 same shuffled order from the same numpy generator as the JAX package's.
 
-Not ported: data-parallel pretraining over several cards (`dp_devices > 1`,
-ROADMAP.md Queue 1: DDP), refused with NotImplementedError.
+`dp_devices` N > 1 trains data-parallel: each of the N ranks of an
+initialised process group (`tpuslam_torch.parallel.make_process_group`)
+runs a `Pretrainer` with the same arguments, draws the same batches, and
+steps on its slice of each (`make_dp_train_step`: sync-BN, averaged
+gradients and losses).  Rank 0 alone validates, saves, marks the best epoch
+and prints.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuslam_torch import resolve_device
 from tpuslam_torch.checkpoint.io import (
@@ -34,6 +39,7 @@ from tpuslam_torch.data.base import Prefetcher, Sample
 from tpuslam_torch.eval.depth import calc_depth_error
 from tpuslam_torch.geometry.depth import depth_to_disp
 from tpuslam_torch.models.depth_pose import DepthPoseNet, init_depth_pose
+from tpuslam_torch.parallel import make_dp_train_step, shard_batch
 from tpuslam_torch.train.batch import FrameBatch, make_frame_batch
 from tpuslam_torch.train.state import (
     make_pretrain_optimizer,
@@ -107,11 +113,14 @@ class Pretrainer:
     ):
         """`model` trains the given networks in place (on `device`) instead
         of fresh ones drawn from `seed` and initialised from
-        `encoder_weights`."""
+        `encoder_weights`.  `dp_devices` > 1 needs an initialised process
+        group of that size, and raises ValueError otherwise."""
         if dp_devices > 1:
-            raise NotImplementedError(
-                f"dp_devices={dp_devices}: data-parallel pretraining is not ported to "
-                "tpuslam_torch yet (ROADMAP.md Queue 1: DDP)")
+            have = dist.get_world_size() if dist.is_initialized() else 1
+            if have != dp_devices:
+                raise ValueError(
+                    f"dp_devices={dp_devices} needs a process group of {dp_devices} ranks "
+                    f"(tpuslam_torch.parallel.make_process_group), have {have}")
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported dtype {dtype!r}")
         self.device = resolve_device(device)
@@ -122,6 +131,7 @@ class Pretrainer:
         self.epoch = 0
         self.rng = np.random.default_rng(seed)
         self.dp_devices = dp_devices
+        self.rank = dist.get_rank() if dp_devices > 1 else 0
 
         if model is None:
             model = init_depth_pose(seed, resnet_depth=resnet_depth, resnet_pose=resnet_pose,
@@ -146,6 +156,7 @@ class Pretrainer:
         self._cfg_prior = self.cfg._replace(scale_prior_weight=scale_prior_weight)
         self.state = make_train_state(model, make_pretrain_optimizer(model, learning_rate),
                                       seed=seed)
+        self._dp_step = self._dp_cfg = None
 
     def _epoch_cfg(self) -> LossConfig:
         return self._cfg_prior if self.epoch <= self.scale_prior_epochs else self.cfg
@@ -154,7 +165,13 @@ class Pretrainer:
         return make_frame_batch(**arrays, device=self.device)
 
     def _step(self, batch: FrameBatch) -> Dict[str, torch.Tensor]:
-        return train_step(self.state, self._epoch_cfg(), batch)
+        cfg = self._epoch_cfg()
+        if self.dp_devices > 1:
+            if cfg is not self._dp_cfg:  # the prior's epochs have ended
+                self._dp_step = make_dp_train_step(self.state.model, cfg)
+                self._dp_cfg = cfg
+            return self._dp_step(self.state, shard_batch(batch, self.rank, self.dp_devices))
+        return train_step(self.state, cfg, batch)
 
     def train_epoch(self, dataset, progress: bool = True) -> float:
         """One pass over `dataset`; the loss is read (a host sync) every 25
@@ -170,7 +187,7 @@ class Pretrainer:
                 if not np.isfinite(loss):
                     raise RuntimeError(f"NaN loss at epoch {self.epoch} step {i + 1}")
                 losses.append(loss)
-                if progress:
+                if progress and self.rank == 0:
                     print(f"epoch {self.epoch} step {i + 1}: loss={loss:.4f}")
         if step_losses is None:
             raise ValueError(f"the training split ({len(dataset)} samples) holds no batch of "
@@ -244,7 +261,11 @@ class Pretrainer:
         self.state.step = int(meta.get("step", self.state.step))
         return self
 
-    def save(self, config_yaml: Optional[str] = None) -> Path:
+    def save(self, config_yaml: Optional[str] = None) -> Optional[Path]:
+        """The checkpoint folder of this epoch (None on a rank other than 0,
+        which writes nothing)."""
+        if self.rank != 0:
+            return None
         return save_checkpoint(self.log_path, epoch=self.epoch, model=self.state.model,
                                optimizer=self.state.optimizer, meta={"step": self.state.step},
                                config_yaml=config_yaml)
@@ -314,7 +335,8 @@ class Pretrainer:
         (abs_rel with `depth_error`, else validation_loss when validating,
         else training_loss; lower is better).  Each improvement saves the
         checkpoint and marks it in models/best.yaml; the final model is
-        always saved."""
+        always saved.  With `dp_devices` > 1 the ranks other than 0 only
+        train."""
         if monitor is None:
             if depth_error and val_dataset is not None:
                 monitor = "abs_rel"
@@ -325,6 +347,8 @@ class Pretrainer:
         best = float("inf")
         for _ in range(num_epochs):
             train_loss = self.train_epoch(train_dataset)
+            if self.rank != 0:
+                continue
             record = {"epoch": self.epoch, "training_loss": train_loss}
             if validate and val_dataset is not None:
                 record["validation_loss"] = self.validate(val_dataset, max_batches=val_batches)
