@@ -540,13 +540,32 @@ class PathGuard:
             setattr(self.mods[mod], name, fn)
 
 
-def reset_launches(wp, rp) -> None:
-    wp.reset_launches()
-    rp.reset_launches()
+# the kernels' entry points, as `ops/warp.py` and `ops/reproj.py` count
+# their launches (the tracer's counters `launches.<entry>`)
+LAUNCH_ENTRIES = ("warp_static_fused", "warp_static", "warp_static_trunc", "warp_static_bwd",
+                  "warp_static_bwd_trunc", "warp_tall", "warp_tall_notaps", "warp_tall_proj",
+                  "warp_tall_proj_notaps", "reproj_err", "reproj_err_bwd", "err_bwd_coords")
 
 
-def read_launches(wp, rp) -> dict:
-    return {**wp.launches, **rp.launches}
+def reset_launches() -> None:
+    """Count the kernels' launches from here on: the tracer on, emptied."""
+    from tpuslam_torch import tracing
+
+    tracing.reset()
+    tracing.enable()
+
+
+def read_launches() -> dict:
+    """The launches since `reset_launches`, by entry point; the tracer off."""
+    from tpuslam_torch import tracing
+
+    counters = tracing.snapshot()["counters"]
+    tracing.disable()
+    unknown = {k for k in counters if k.startswith("launches.")} - {
+        "launches." + k for k in LAUNCH_ENTRIES}
+    if unknown:
+        raise AssertionError(f"launch counters of no known entry point: {sorted(unknown)}")
+    return {k: counters.get("launches." + k, 0) for k in LAUNCH_ENTRIES}
 
 
 def expect_launches(path: str, got: dict, want: dict) -> None:
@@ -583,11 +602,11 @@ def run_adapt_path(torch, wp, rp, phase, log_dir, captured, card, steps, want, *
     held = torch.cuda.memory_allocated()  # earlier paths' inputs kept for phase kernels
     slam = Slam(smoke_config(log_dir, adaptation=True, **pc), device="cuda")
     losses = []
-    reset_launches(wp, rp)
+    reset_launches()
     with PathGuard(wp, rp, captured):
         for _ in range(steps):
             losses.append(slam.step())
-    launches = read_launches(wp, rp)
+    launches = read_launches()
     adapted = len(slam.step_times)
     bad = [l for l in losses if not all(math.isfinite(v) for v in l.values())]
     if bad or adapted == 0:
@@ -611,10 +630,10 @@ def run_eval_path(torch, wp, rp, phase, log_dir, captured, want, **pc):
     from tpuslam_torch.slam import Slam
 
     slam = Slam(smoke_config(log_dir, adaptation=False, **pc), device="cuda")
-    reset_launches(wp, rp)
+    reset_launches()
     with PathGuard(wp, rp, captured):
         losses = [slam.step() for _ in range(2)]
-    launches = read_launches(wp, rp)
+    launches = read_launches()
     if not all(math.isfinite(l["loss"]) for l in losses):
         raise AssertionError(f"{phase}: losses {losses}")
     expect_launches(phase, launches, want)
@@ -652,12 +671,12 @@ def phase_predictor(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> 
     training = concat_batches(online, make_frame_batch(
         np.stack([r.rgb for r in replay]), np.stack([r.K for r in replay]),
         np.stack([r.rel_dist for r in replay]), device="cuda"))
-    reset_launches(wp, rp)
+    reset_launches()
     with PathGuard(wp, rp, captured):
         got = pred.predict_from_images(s.rgb[0], s.rgb[1], **calib)
         outputs, losses = pred.adapt(online, training, steps=5)
         packed = outputs[("retire_packed",)].cpu().numpy()
-    launches = read_launches(wp, rp)
+    launches = read_launches()
     err = dict(depth_0=rel_err(torch.from_numpy(got[0]), torch.from_numpy(want[0])),
                depth_1=rel_err(torch.from_numpy(got[1]), torch.from_numpy(want[1])),
                pose=rel_err(torch.from_numpy(got[2]), torch.from_numpy(want[2])),
@@ -825,12 +844,12 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
 
     slam.loop_closure_detection.search = logged_search
     slam.pose_graph.optimize = kept_optimize
-    reset_launches(wp, rp)
+    reset_launches()
     t0 = time.perf_counter()
     with PathGuard(wp, rp, captured):
         slam.run(max_steps=LC_FRAMES, progress=False, prefetch_depth=3)
     run_s = time.perf_counter() - t0
-    launches = read_launches(wp, rp)
+    launches = read_launches()
     adapted = len(slam.step_times)
     if slam._retire_queue or adapted != LC_FRAMES:
         raise AssertionError(f"lc main: {len(slam._retire_queue)} frames left in the retire "
@@ -930,10 +949,10 @@ def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) ->
 
     embedder.embed = timed_embed
     slam.loop_closure_detection.search = logged_search
-    reset_launches(wp, rp)
+    reset_launches()
     with PathGuard(wp, rp, {}):
         slam.run(max_steps=LC_MOBILENET_FRAMES, progress=False, prefetch_depth=3)
-    launches = read_launches(wp, rp)
+    launches = read_launches()
     del embedder.embed  # the class's method again
     torch.cuda.synchronize()
     adapted = len(slam.step_times)
@@ -1098,7 +1117,7 @@ def phase_ddp(torch, wp, rp, log_dir: Path, card: str) -> None:
     arrays = stack_samples([world_ds[i] for i in range(PRETRAIN_B)])
     del arrays["mask"]
     np.savez(log_dir / "ddp_batch.npz", **arrays)
-    reset_launches(wp, rp)
+    reset_launches()
     runs = {}
     for name, dtype in (("train_step float64", torch.float64), ("train_step", None)):
         model = ddp_model(torch, dtype)
@@ -1121,7 +1140,7 @@ def phase_ddp(torch, wp, rp, log_dir: Path, card: str) -> None:
         runs["world size 1 over NCCL"] = ddp_run(torch, 0, 1, log_dir)
     finally:
         dist.destroy_process_group()
-    expect_launches("ddp", read_launches(wp, rp), {})
+    expect_launches("ddp", read_launches(), {})
     mp.spawn(ddp_gloo_rank, args=(local_init_method(), str(log_dir)), nprocs=2)
     runs["2 ranks over gloo, one card"] = dict(np.load(log_dir / "ddp_gloo.npz"))
     control = dict(np.load(log_dir / "ddp_control.npz"))
@@ -1219,13 +1238,13 @@ def phase_rungs(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict
     run = rungs._run
 
     def counted(name, cfg, dataset, diagnostics=False, device="cuda"):
-        reset_launches(wp, rp)
+        reset_launches()
         with PathGuard(wp, rp, captured.setdefault(name, {})):
             slam = run(name, cfg, dataset, diagnostics, device)
         warm = slam.step_times[5:]
         gen = slam.generalist_state
         out[name] = dict(
-            launches=read_launches(wp, rp), frames=len(slam.step_times),
+            launches=read_launches(), frames=len(slam.step_times),
             ms=1e3 * float(np.mean(warm)), launched=slam.async_updates_launched,
             adopted=slam.async_updates_adopted, consolidations=gen.step if gen else 0,
             finite=all(math.isfinite(v) for v in slam.depth_loss + slam.velocity_loss),
@@ -1393,12 +1412,12 @@ def phase_cli_adapt(torch, wp, rp, main_slam, log_dir: Path, captured: dict, car
     if loaded.keys() != saved.keys() or not all(torch.equal(loaded[k], saved[k]) for k in saved):
         raise AssertionError("cli adapt: the loaded networks differ from the saved ones")
     del loaded
-    reset_launches(wp, rp)
+    reset_launches()
     t0 = time.perf_counter()
     with PathGuard(wp, rp, captured):
         rc = adapt.main(["--config", str(path), "--device", "cuda", "--no-progress"])
     wall = time.perf_counter() - t0
-    launches = read_launches(wp, rp)
+    launches = read_launches()
     report = (out / "log.txt").read_text() if (out / "log.txt").exists() else ""
     missing = [f for f in ("metrics.pkl", "log.txt", "models/weights_000/model.pt",
                            "models/weights_000/meta.yaml") if not (out / f).exists()]
@@ -1443,13 +1462,13 @@ def phase_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> d
         held = torch.cuda.memory_allocated()
         trainer = Pretrainer(height=H, width=W, batch_size=PRETRAIN_B, pallas_warp=pallas,
                              log_path=log_dir / "pretrain", device="cuda")
-        reset_launches(wp, rp)
+        reset_launches()
         t0 = time.perf_counter()
         with PathGuard(wp, rp, captured if pallas else {}):
             loss = trainer.train_epoch(pretrain_split(pool, 5 * PRETRAIN_B), progress=False)
             val = trainer.validate(pretrain_split(pool, 2 * PRETRAIN_B))
         first_s = time.perf_counter() - t0
-        launches = read_launches(wp, rp)
+        launches = read_launches()
         peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
         if not (math.isfinite(loss) and math.isfinite(val)):
             raise AssertionError(f"{phase}: loss {loss}, validation loss {val}")
@@ -1505,12 +1524,12 @@ def phase_cli_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) 
     cfg["DepthPosePrediction"]["log_path"] = str(out)
     path = log_dir / "pretrain_collapse_synthetic_192.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    reset_launches(wp, rp)
+    reset_launches()
     t0 = time.perf_counter()
     with PathGuard(wp, rp, captured):
         rc = pretrain.main(["--config", str(path), "--epochs", "2"])
     wall = time.perf_counter() - t0
-    expect_launches("cli pretrain", read_launches(wp, rp), {})
+    expect_launches("cli pretrain", read_launches(), {})
     models = out / "models"
     best = yaml.safe_load((models / "best.yaml").read_text()) if (models / "best.yaml").exists() \
         else None

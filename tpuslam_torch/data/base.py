@@ -17,6 +17,8 @@ from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from tpuslam_torch import tracing
+
 try:  # PIL for image decode + LANCZOS resize (reference parity)
     from PIL import Image
 except ImportError:  # pragma: no cover
@@ -188,8 +190,9 @@ def random_color_jitter(
     order = rng.permutation(len(ops))
 
     def apply(img: np.ndarray) -> np.ndarray:
-        for i in order:
-            img = ops[i](img)
+        with tracing.span("data.jitter"):
+            for i in order:
+                img = ops[i](img)
         return img
 
     return apply
@@ -203,13 +206,15 @@ class Prefetcher:
     """Background-thread prefetch (double buffering) over any iterator.
 
     One thread that stays `depth` items ahead of the consumer; the items are
-    host (numpy) work only, so the thread never touches the device."""
+    host (numpy) work only, so the thread never touches the device.  The
+    consumer's wait for item k is the span `train.wait` with id k."""
 
     _SENTINEL = object()
 
     def __init__(self, iterator: Iterator, depth: int = 2):
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._iterator = iterator
+        self._taken = 0
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -224,7 +229,9 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._queue.get()
+        with tracing.span("train.wait", self._taken):
+            item = self._queue.get()
+        self._taken += 1
         if item is self._SENTINEL:
             raise StopIteration
         return item

@@ -15,6 +15,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from tpuslam_torch import tracing
 from tpuslam_torch.memory.index import CosineIndex, normalize_l2
 
 
@@ -34,10 +35,12 @@ class LoopClosureDetection:
     def __len__(self) -> int:
         return self.index.ntotal
 
+    @tracing.traced("lc.add")
     def add(self, frame_id: int, embedding: np.ndarray) -> None:
         emb = normalize_l2(np.asarray(embedding, np.float32).reshape(1, -1))
         self.index.add_with_ids(emb, [frame_id])
 
+    @tracing.traced("lc.search")
     def search(self, frame_id: int) -> Tuple[List[int], List[float]]:
         """Candidate loop closures for a stored keyframe: (frame ids, their
         similarities)."""

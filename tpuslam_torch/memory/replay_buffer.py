@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from tpuslam_torch import tracing
 from tpuslam_torch.data.base import Sample, load_image, random_color_jitter
 from tpuslam_torch.memory.index import CosineIndex, normalize_l2
 
@@ -77,6 +78,7 @@ class ReplayBuffer:
         return 0 if self.index is None else self.index.ntotal
 
     # ------------------------------------------------------------------ add
+    @tracing.traced("data.replay.add")
     def add(
         self,
         sample: Sample,
@@ -145,6 +147,7 @@ class ReplayBuffer:
                 pickle.dump(record, f, pickle.HIGHEST_PROTOCOL)
 
     # ------------------------------------------------------------------ get
+    @tracing.traced("data.replay.draw")
     def get(
         self,
         current_index: Optional[int] = None,

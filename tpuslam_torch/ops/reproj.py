@@ -25,19 +25,16 @@ from typing import Optional
 
 import torch
 
+from tpuslam_torch import tracing
 from tpuslam_torch.losses.photometric import reprojection_loss
 from tpuslam_torch.ops import build
 from tpuslam_torch.ops import warp as wp
 
-# Launch counts of the CUDA kernels by entry point (CPU calls are not counted)
-launches = dict.fromkeys(("reproj_err", "reproj_err_bwd", "err_bwd_coords"), 0)
+# Launches of the CUDA kernels are the tracer's counters `launches.<entry>`
+# (CPU calls are not counted): reproj_err (K6), reproj_err_bwd (K6'),
+# err_bwd_coords (K7/K8).
 
 _configured: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -140,7 +137,7 @@ def reproj_err_fwd(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     err = torch.empty((N, H, W), dtype=torch.float32, device=preds.device)
     _stream_call(load_library().tpuslam_reproj_err, preds.device, preds, target, err,
                  N, target.shape[0], H, W, C, int(preds.dtype == torch.bfloat16))
-    launches["reproj_err"] += 1
+    tracing.count("launches.reproj_err")
     return err
 
 
@@ -155,7 +152,7 @@ def reproj_err_bwd(preds, target, g) -> torch.Tensor:
     _stream_call(load_library().tpuslam_reproj_err_bwd, preds.device, preds, target, g,
                  None, None, dpred, None, N, target.shape[0], H, W, C,
                  int(preds.dtype == torch.bfloat16))
-    launches["reproj_err_bwd"] += 1
+    tracing.count("launches.reproj_err_bwd")
     return dpred
 
 
@@ -170,7 +167,7 @@ def err_bwd_coords(preds, target, g, dx, dy) -> torch.Tensor:
     _stream_call(load_library().tpuslam_reproj_err_bwd, preds.device, preds, target, g,
                  dx, dy, None, dc, N, target.shape[0], H, W, C,
                  int(preds.dtype == torch.bfloat16))
-    launches["err_bwd_coords"] += 1
+    tracing.count("launches.err_bwd_coords")
     return dc
 
 

@@ -44,25 +44,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpuslam_torch import tracing
 from tpuslam_torch.geometry.camera import bilinear_blend, bilinear_sampler, bilinear_taps
 from tpuslam_torch.ops import build
 
-# Launch counts of the CUDA kernel by entry point (CPU calls are not counted)
-launches = dict.fromkeys((
-    "warp_static_fused",  # K1 with taps
-    "warp_static", "warp_static_trunc",  # K1 and K2 without taps, taps exact / truncated
-    "warp_static_bwd", "warp_static_bwd_trunc",  # K2's backward
-    "warp_tall", "warp_tall_notaps",  # K4
-    "warp_tall_proj", "warp_tall_proj_notaps",  # K5
-), 0)
+# Launches of the CUDA kernel are the tracer's counters `launches.<entry>`
+# (CPU calls are not counted): warp_static_fused (K1 with taps); warp_static,
+# warp_static_trunc (K1 and K2 without taps, taps exact / truncated);
+# warp_static_bwd, warp_static_bwd_trunc (K2's backward); warp_tall,
+# warp_tall_notaps (K4); warp_tall_proj, warp_tall_proj_notaps (K5).
 
 _PROJ_EPS = 1e-3  # z clamp of the projection, as geometry.camera.project_3d
 _configured: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -261,7 +254,7 @@ def warp_static_fused(src, coords, bf16_out: bool = False):
         with torch.no_grad():
             return _stored(warp_static_fused_plain(src, coords), bf16_out)
     outs = _launch(src, coords, None, None, src.shape[0], 1, src.shape[0], True, bf16_out)
-    launches["warp_static_fused"] += 1
+    tracing.count("launches.warp_static_fused")
     return tuple(outs)
 
 
@@ -277,7 +270,7 @@ def warp_static(src, coords, bf16_out: bool = False, trunc: bool = False):
             return _stored((warp_two_kernel_plain(src, coords, trunc),), bf16_out)[0]
     out = _launch(src, coords, None, None, src.shape[0], 1, src.shape[0], False, bf16_out,
                   trunc)[0]
-    launches["warp_static_trunc" if trunc else "warp_static"] += 1
+    tracing.count("launches.warp_static_trunc" if trunc else "launches.warp_static")
     return out
 
 
@@ -292,7 +285,7 @@ def warp_static_bwd(src, coords, g, trunc: bool = False):
         with torch.no_grad():
             return warp_grad_plain(src, coords, g, trunc)
     dcoords = _launch_grad(src, coords, g, trunc)
-    launches["warp_static_bwd_trunc" if trunc else "warp_static_bwd"] += 1
+    tracing.count("launches.warp_static_bwd_trunc" if trunc else "launches.warp_static_bwd")
     return dcoords
 
 
@@ -304,7 +297,7 @@ def warp_tall_taps(src2, coords, S: int, bf16_out: bool = False):
             return _stored(warp_tall_plain(src2, coords, S), bf16_out)
     B = src2.shape[0] // 2
     outs = _launch(src2, coords, None, None, 2 * S * B, S, B, True, bf16_out)
-    launches["warp_tall"] += 1
+    tracing.count("launches.warp_tall")
     return tuple(outs)
 
 
@@ -316,7 +309,7 @@ def warp_tall_notaps(src2, coords, S: int, bf16_out: bool = False):
             return _stored((bilinear_sampler(tall_sources(src2, S), coords),), bf16_out)[0]
     B = src2.shape[0] // 2
     out = _launch(src2, coords, None, None, 2 * S * B, S, B, False, bf16_out)[0]
-    launches["warp_tall_notaps"] += 1
+    tracing.count("launches.warp_tall_notaps")
     return out
 
 
@@ -328,7 +321,7 @@ def warp_tall_proj_taps(src2, depth, ab, S: int, bf16_out: bool = False):
             return _stored(warp_tall_proj_plain(src2, depth, ab, S), bf16_out)
     B = src2.shape[0] // 2
     outs = _launch(src2, None, depth, ab, 2 * S * B, S, B, True, bf16_out)
-    launches["warp_tall_proj"] += 1
+    tracing.count("launches.warp_tall_proj")
     return tuple(outs)
 
 
@@ -342,7 +335,7 @@ def warp_tall_proj_notaps(src2, depth, ab, S: int, bf16_out: bool = False):
             return _stored((bilinear_sampler(tall_sources(src2, S), coords),), bf16_out)[0]
     B = src2.shape[0] // 2
     out = _launch(src2, None, depth, ab, 2 * S * B, S, B, False, bf16_out)[0]
-    launches["warp_tall_proj_notaps"] += 1
+    tracing.count("launches.warp_tall_proj_notaps")
     return out
 
 

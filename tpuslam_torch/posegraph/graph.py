@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpuslam_torch import resolve_device
+from tpuslam_torch import resolve_device, tracing
 from tpuslam_torch.posegraph import native
 from tpuslam_torch.posegraph.lm import GraphArrays, lm_optimize
 
@@ -174,6 +174,7 @@ class PoseGraph:
                                device=device)
             for k, v in arrays.items()}), ids
 
+    @tracing.traced("pg.optimize")
     def optimize(
         self,
         max_iterations: int = 20,

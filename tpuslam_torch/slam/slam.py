@@ -52,7 +52,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tpuslam_torch import resolve_device
+from tpuslam_torch import resolve_device, tracing
 from tpuslam_torch.checkpoint.io import load_checkpoint, save_checkpoint
 from tpuslam_torch.checkpoint.torch_import import load_mobilenet_embedder
 from tpuslam_torch.config.schema import Config
@@ -255,7 +255,10 @@ class Slam:
             model, make_adapt_optimizer(model, pc.learning_rate, pc.adapt_depth_lr_scale))
 
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+        images = np.ascontiguousarray(images, np.float32)
+        if tracing.on:
+            tracing.count("h2d_bytes", images.nbytes)
+        return torch.from_numpy(images).to(self.device)
 
     def _sample_to_batch(self, sample: Sample) -> FrameBatch:
         return make_frame_batch(
@@ -271,20 +274,21 @@ class Slam:
     def _training_batch(self, online: FrameBatch, sample: Sample) -> FrameBatch:
         if self.replay_buffer is None or len(self.replay_buffer) == 0:
             return pad_batch(online, self.batch_size)
-        embedding = None
-        if self.replay_buffer.similarity_sampling:
-            embedding = self._embed_frame(sample.rgb[1])[0].cpu().numpy()
-        draws = self.replay_buffer.get(current_index=sample.index, embedding=embedding)
-        self.replay_composition.append([int(d.index) for d in draws])
-        if not draws:
-            return pad_batch(online, self.batch_size)
-        replay = make_frame_batch(
-            np.stack([d.rgb for d in draws]),
-            np.stack([d.K for d in draws]),
-            np.stack([d.rel_dist for d in draws]),
-            rgb_aug=np.stack([d.aug for d in draws]),
-            device=self.device,
-        )
+        with tracing.span("data.replay"):
+            embedding = None
+            if self.replay_buffer.similarity_sampling:
+                embedding = self._embed_frame(sample.rgb[1])[0].cpu().numpy()
+            draws = self.replay_buffer.get(current_index=sample.index, embedding=embedding)
+            self.replay_composition.append([int(d.index) for d in draws])
+            if not draws:
+                return pad_batch(online, self.batch_size)
+            replay = make_frame_batch(
+                np.stack([d.rgb for d in draws]),
+                np.stack([d.K for d in draws]),
+                np.stack([d.rel_dist for d in draws]),
+                rgb_aug=np.stack([d.aug for d in draws]),
+                device=self.device,
+            )
         return pad_batch(concat_batches(online, replay), self.batch_size)
 
     def step(self, sample: Optional[Sample] = None) -> Dict[str, float]:
@@ -294,18 +298,20 @@ class Slam:
         frame t-N: the losses returned are frame t-N's (zeros while the
         queue fills), and `flush_pipeline` retires the rest."""
         self.current_step += 1
-        t_start = time.perf_counter()
-        if sample is None:
-            sample = self.dataset[self.current_step - 1]
-        entry = self._dispatch(sample)
-        self._retire_queue.append(entry)
-        out = {"depth_loss": 0.0, "velocity_loss": 0.0}
-        while len(self._retire_queue) > self.pipeline_depth:
-            out = self._retire(self._retire_queue.popleft())
-        if entry["kind"] == "full":
-            self.step_times.append(time.perf_counter() - t_start)
+        with tracing.span("slam.step", self.current_step):
+            t_start = time.perf_counter()
+            if sample is None:
+                sample = self.dataset[self.current_step - 1]
+            entry = self._dispatch(sample)
+            self._retire_queue.append(entry)
+            out = {"depth_loss": 0.0, "velocity_loss": 0.0}
+            while len(self._retire_queue) > self.pipeline_depth:
+                out = self._retire(self._retire_queue.popleft())
+            if entry["kind"] == "full":
+                self.step_times.append(time.perf_counter() - t_start)
         return out
 
+    @tracing.traced("slam.dispatch")
     def _dispatch(self, sample: Sample) -> Dict:
         """Device phase of one frame, ending with the copies of what
         `_retire` reads; returns the entry for `_retire`."""
@@ -408,12 +414,14 @@ class Slam:
             raise RuntimeError("dual-network mode is not enabled (use_expert)")
         self.state = self._fresh_state(clone_train_state(self.generalist_state).model)
 
+    @tracing.traced("slam.host_copies")
     def _start_host_copies(self, entry: Dict) -> None:
         """Copy every tensor `_retire` reads to the host, without blocking
         on the card: into pinned memory on the current stream, then an
         event that `_retire` waits on.  On the CPU the tensors are read in
         place: they are made by this frame's dispatch and never written
-        again."""
+        again.  Their bytes add to the tracer's counter `d2h_bytes` (on
+        the CPU too, where nothing is copied)."""
         outputs = entry["outputs"]
         if entry["kind"] == "skip":
             reads = {"embedding": outputs.get(("embedding",))}
@@ -424,6 +432,8 @@ class Slam:
                 reads["depth"] = outputs[("depth", 0)][0, ..., 0]
         host = {}
         for name, t in reads.items():
+            if tracing.on and t is not None:
+                tracing.count("d2h_bytes", t.numel() * t.element_size())
             if t is None or t.device.type == "cpu":
                 host[name] = t
                 continue
@@ -438,81 +448,84 @@ class Slam:
     def _retire(self, entry: Dict) -> Dict[str, float]:
         """Host phase of one frame: replay-buffer admission, pose-graph
         vertex and edge, loop-closure search and solve, metrics."""
-        sample: Sample = entry["sample"]
-        step_id: int = entry["step_id"]
-        if entry["event"] is not None:
-            entry["event"].synchronize()
-        host = entry["host"]
-        if entry["kind"] == "skip":
-            if host["embedding"] is not None:
-                self.replay_buffer.add(sample, host["embedding"][0].numpy())
-            return {"depth_loss": 0.0, "velocity_loss": 0.0}
-        flat = host["packed"].numpy()
-        D = int(entry["outputs"][("embedding",)].shape[-1])
-        T01 = np.asarray(flat[:16].reshape(4, 4), np.float64)
-        embedding = flat[16:16 + D]
-        dl, vl, tl = (float(x) for x in flat[16 + D:19 + D])
-        losses_out = {"depth_loss": dl, "velocity_loss": vl, "loss": tl}
-        if self.replay_buffer is not None:
-            self.replay_buffer.add(sample, embedding)
+        with tracing.span("slam.retire", entry["step_id"]):
+            sample: Sample = entry["sample"]
+            step_id: int = entry["step_id"]
+            if entry["event"] is not None:
+                with tracing.span("slam.retire.wait"):
+                    entry["event"].synchronize()
+            host = entry["host"]
+            if entry["kind"] == "skip":
+                if host["embedding"] is not None:
+                    self.replay_buffer.add(sample, host["embedding"][0].numpy())
+                return {"depth_loss": 0.0, "velocity_loss": 0.0}
+            flat = host["packed"].numpy()
+            D = int(entry["outputs"][("embedding",)].shape[-1])
+            T01 = np.asarray(flat[:16].reshape(4, 4), np.float64)
+            embedding = flat[16:16 + D]
+            dl, vl, tl = (float(x) for x in flat[16 + D:19 + D])
+            losses_out = {"depth_loss": dl, "velocity_loss": vl, "loss": tl}
+            if self.replay_buffer is not None:
+                self.replay_buffer.add(sample, embedding)
 
-        if float(np.sign(sample.rel_dist[1])) < 0:
-            transformation = T01  # reversing
-        else:
-            transformation = np.linalg.inv(T01)
-        if not np.isfinite(tl):
-            raise RuntimeError(f"NaN loss at step {step_id}: {losses_out}")
-
-        gt_transformation = np.asarray(sample.rel_pose, np.float64)
-        gt_pose = np.asarray(sample.abs_pose, np.float64)
-        self.gt_pose_graph.add_vertex(step_id, gt_pose)
-        self.gt_pose_graph.add_edge(
-            (self.gt_pose_graph.vertex_ids[-2], step_id), gt_transformation
-        )
-        if step_id == self.start_frame:
-            self.pose_graph.add_vertex(step_id, gt_pose, fixed=True)
-        elif step_id > self.start_frame:
-            prev_id = self.pose_graph.vertex_ids[-1]
-            self.pose_graph.add_vertex(step_id, self.pose_graph.get_pose(prev_id) @ transformation)
-            self.pose_graph.add_edge((prev_id, step_id), transformation,
-                                     information=_odometry_information())
-
-        if self.do_loop_closures and step_id >= self.start_frame:
-            # the frame +1 loop-closure embedding: the end of the packed
-            # vector, or the MobileNet one copied beside it
-            lc_embedding = flat[19 + D:] if host["mobilenet"] is None else \
-                host["mobilenet"][0].numpy()
-            self.loop_closure_detection.add(step_id, lc_embedding)
-            optimized = False
-            if (step_id % self.keyframe_frequency == 0 and step_id < LC_MAX_STEP
-                    and self.since_last_loop_closures > self.lc_distance_poses):
-                optimized = self._close_loops(step_id, sample)
-            if optimized:
-                self.since_last_loop_closures = 0
+            if float(np.sign(sample.rel_dist[1])) < 0:
+                transformation = T01  # reversing
             else:
-                self.since_last_loop_closures += 1
+                transformation = np.linalg.inv(T01)
+            if not np.isfinite(tl):
+                raise RuntimeError(f"NaN loss at step {step_id}: {losses_out}")
 
-        if self.logging:
-            rel_err = np.linalg.inv(gt_transformation) @ transformation
-            self.rel_trans_error.append(translation_error(rel_err))
-            self.rel_rot_error.append(rotation_error(rel_err))
-            self.depth_loss.append(dl)
-            self.velocity_loss.append(vl)
-            if sample.depth is not None:
-                self.depth_error.append(calc_depth_error(
-                    host["depth"].numpy(), sample.depth,
-                    min_depth=self.loss_cfg.min_depth, max_depth=self.loss_cfg.max_depth,
-                ))
-        # periodic visual checkpoints, as the reference draws them
-        if self.logging and self.plot_frequency > 0 and step_id % self.plot_frequency == 0:
-            try:
-                self.plot_trajectory(self.log_path / f"trajectory_{step_id}.png")
-                self.plot_metrics(self.log_path / f"metrics_{step_id}.png")
-                self.pose_graph.visualize_in_meshlab(
-                    self.log_path / f"pose_graph_{step_id}.obj", verbose=False)
-            except Exception as e:  # plotting must never kill the run
-                print(f"periodic plotting skipped: {e}")
-        return losses_out
+            gt_transformation = np.asarray(sample.rel_pose, np.float64)
+            gt_pose = np.asarray(sample.abs_pose, np.float64)
+            self.gt_pose_graph.add_vertex(step_id, gt_pose)
+            self.gt_pose_graph.add_edge(
+                (self.gt_pose_graph.vertex_ids[-2], step_id), gt_transformation
+            )
+            if step_id == self.start_frame:
+                self.pose_graph.add_vertex(step_id, gt_pose, fixed=True)
+            elif step_id > self.start_frame:
+                prev_id = self.pose_graph.vertex_ids[-1]
+                self.pose_graph.add_vertex(step_id,
+                                           self.pose_graph.get_pose(prev_id) @ transformation)
+                self.pose_graph.add_edge((prev_id, step_id), transformation,
+                                         information=_odometry_information())
+
+            if self.do_loop_closures and step_id >= self.start_frame:
+                # the frame +1 loop-closure embedding: the end of the packed
+                # vector, or the MobileNet one copied beside it
+                lc_embedding = flat[19 + D:] if host["mobilenet"] is None else \
+                    host["mobilenet"][0].numpy()
+                self.loop_closure_detection.add(step_id, lc_embedding)
+                optimized = False
+                if (step_id % self.keyframe_frequency == 0 and step_id < LC_MAX_STEP
+                        and self.since_last_loop_closures > self.lc_distance_poses):
+                    optimized = self._close_loops(step_id, sample)
+                if optimized:
+                    self.since_last_loop_closures = 0
+                else:
+                    self.since_last_loop_closures += 1
+
+            if self.logging:
+                rel_err = np.linalg.inv(gt_transformation) @ transformation
+                self.rel_trans_error.append(translation_error(rel_err))
+                self.rel_rot_error.append(rotation_error(rel_err))
+                self.depth_loss.append(dl)
+                self.velocity_loss.append(vl)
+                if sample.depth is not None:
+                    self.depth_error.append(calc_depth_error(
+                        host["depth"].numpy(), sample.depth,
+                        min_depth=self.loss_cfg.min_depth, max_depth=self.loss_cfg.max_depth,
+                    ))
+            # periodic visual checkpoints, as the reference draws them
+            if self.logging and self.plot_frequency > 0 and step_id % self.plot_frequency == 0:
+                try:
+                    self.plot_trajectory(self.log_path / f"trajectory_{step_id}.png")
+                    self.plot_metrics(self.log_path / f"metrics_{step_id}.png")
+                    self.pose_graph.visualize_in_meshlab(
+                        self.log_path / f"pose_graph_{step_id}.obj", verbose=False)
+                except Exception as e:  # plotting must never kill the run
+                    print(f"periodic plotting skipped: {e}")
+            return losses_out
 
     def _close_loops(self, step_id: int, sample: Sample) -> bool:
         """Search the index for keyframe `step_id`, add a loop edge for each
@@ -598,6 +611,7 @@ class Slam:
         self.finish_async()
         return self
 
+    @tracing.traced("slam.flush")
     def flush_pipeline(self) -> None:
         """Retire every queued frame: after this the pose graph, replay
         buffer, loop-closure index and metrics cover every dispatched frame."""

@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpuslam_torch import tracing
+
 FRAME_AXIS = (-1, 0, 1)
 
 
@@ -51,6 +53,7 @@ class FrameBatch:
         return img
 
 
+@tracing.traced("data.frame_batch")
 def make_frame_batch(
     rgb: np.ndarray,
     K: np.ndarray,
@@ -62,7 +65,9 @@ def make_frame_batch(
 ) -> FrameBatch:
     """Host arrays -> a FrameBatch on `device` (aug defaults to rgb, weights
     to uniform, the mask to None).  Images ship as uint8, float inputs
-    rounded to the nearest 1/255 level."""
+    rounded to the nearest 1/255 level (span `data.to_uint8`).  The bytes
+    handed to `device` add to the tracer's counter `h2d_bytes` (on the CPU
+    too, where nothing is copied)."""
     from tpuslam_torch import resolve_device
 
     device = resolve_device(device)
@@ -75,17 +80,23 @@ def make_frame_batch(
         K = np.broadcast_to(K, (B, 4, 4))
     inv_K = np.linalg.inv(K)
 
+    def ship(x: np.ndarray) -> torch.Tensor:
+        if tracing.on:
+            tracing.count("h2d_bytes", x.nbytes)
+        return torch.from_numpy(x).to(device)
+
     def prep(img):
         img = np.asarray(img)
         if img.dtype != np.uint8:
-            img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
-        return torch.from_numpy(np.ascontiguousarray(img)).to(device)
+            with tracing.span("data.to_uint8"):
+                img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+        return ship(np.ascontiguousarray(img))
 
     prgb = prep(rgb)
     paug = prgb if rgb_aug is None else prep(rgb_aug)
 
     def put(x):
-        return torch.from_numpy(np.array(x, np.float32)).to(device)
+        return ship(np.array(x, np.float32))
 
     return FrameBatch(rgb=prgb, rgb_aug=paug, K=put(K), inv_K=put(inv_K),
                       rel_dist=put(rel_dist), weights=put(weights),

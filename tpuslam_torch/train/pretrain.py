@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpuslam_torch import resolve_device
+from tpuslam_torch import resolve_device, tracing
 from tpuslam_torch.checkpoint.io import (
     latest_checkpoint,
     load_checkpoint,
@@ -64,15 +64,24 @@ def stack_samples(samples: List[Sample]) -> Dict[str, np.ndarray]:
 def host_batches(dataset, batch_size: int, rng: np.random.Generator, shuffle: bool = True,
                  drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
     """The host arrays of each batch, in the JAX package's order: one
-    `rng.shuffle` of the indices per pass."""
+    `rng.shuffle` of the indices per pass.  Batch k is the span
+    `train.batch` with id k, on the thread that draws it (the `Prefetcher`'s
+    in `Pretrainer.train_epoch`)."""
     order = np.arange(len(dataset))
     if shuffle:
         rng.shuffle(order)
-    for start in range(0, len(order), batch_size):
+    for k, start in enumerate(range(0, len(order), batch_size)):
         idx = order[start:start + batch_size]
         if len(idx) < batch_size and drop_last:
             return
-        yield stack_samples([dataset[int(i)] for i in idx])
+        with tracing.span("train.batch", k):
+            samples = []
+            for i in idx:
+                with tracing.span("data.sample"):
+                    samples.append(dataset[int(i)])
+            with tracing.span("train.stack"):
+                arrays = stack_samples(samples)
+        yield arrays
 
 
 def batches_from(dataset, batch_size: int, rng: np.random.Generator, shuffle: bool = True,
@@ -181,14 +190,15 @@ class Pretrainer:
         set_learning_rate(self.state.optimizer, self.lr_schedule(self.epoch))
         losses, step_losses = [], None
         for i, arrays in enumerate(Prefetcher(host_batches(dataset, self.batch_size, self.rng))):
-            step_losses = self._step(self._batch(arrays))
-            if (i + 1) % 25 == 0:
-                loss = float(step_losses["loss"])
-                if not np.isfinite(loss):
-                    raise RuntimeError(f"NaN loss at epoch {self.epoch} step {i + 1}")
-                losses.append(loss)
-                if progress and self.rank == 0:
-                    print(f"epoch {self.epoch} step {i + 1}: loss={loss:.4f}")
+            with tracing.span("train.step", i):
+                step_losses = self._step(self._batch(arrays))
+                if (i + 1) % 25 == 0:
+                    loss = float(step_losses["loss"])
+                    if not np.isfinite(loss):
+                        raise RuntimeError(f"NaN loss at epoch {self.epoch} step {i + 1}")
+                    losses.append(loss)
+                    if progress and self.rank == 0:
+                        print(f"epoch {self.epoch} step {i + 1}: loss={loss:.4f}")
         if step_losses is None:
             raise ValueError(f"the training split ({len(dataset)} samples) holds no batch of "
                              f"{self.batch_size}")
@@ -222,7 +232,10 @@ class Pretrainer:
 
     def _depth(self, image: np.ndarray) -> torch.Tensor:
         """Depth (1, H, W, 1) of one NHWC float image."""
-        image = torch.from_numpy(np.ascontiguousarray(image[None], np.float32)).to(self.device)
+        image = np.ascontiguousarray(image[None], np.float32)
+        if tracing.on:
+            tracing.count("h2d_bytes", image.nbytes)
+        image = torch.from_numpy(image).to(self.device)
         depth, _ = predict_depth_step(self.state.model, image, self.cfg.min_depth,
                                       self.cfg.max_depth, self.cfg.bf16_networks)
         return depth

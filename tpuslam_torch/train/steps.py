@@ -18,6 +18,12 @@ losses always run in float32, and TF32 is off inside every entry point
 One pretraining step (`train_step`) runs `forward` over the whole network,
 encoders included, with batch norm in train mode, then backward and one
 optimizer step over every parameter.
+
+With the tracer on (`tpuslam_torch.tracing`) each step is a span
+(`step.adapt`, `step.eval`, `step.consolidate`, `step.train`) holding its
+phases: `step.frozen` or `step.encode`, then per iteration `step.iter` with
+`step.decode`, `step.warp_loss`, `step.backward`, `step.adam`, and
+`step.embed`, `step.pack`.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from tpuslam_torch import at_least_f32, full_fp32
+from tpuslam_torch import at_least_f32, full_fp32, tracing
 from tpuslam_torch.geometry.camera import (
     backproject_depth,
     bilinear_sampler,
@@ -310,10 +316,11 @@ def warp_and_loss(
 def _decode_and_loss(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig,
                      depth_feats, pose_feat, **kwargs):
     """Decoder halves + warps + losses, given encoder features."""
-    with _networks(cfg.bf16_networks, pose_feat.device):
+    with tracing.span("step.decode"), _networks(cfg.bf16_networks, pose_feat.device):
         disps = model.depth_decode(depth_feats)
         aa, tr = model.pose_decode(pose_feat)
-    return warp_and_loss(disps, at_least_f32(aa), at_least_f32(tr), batch, cfg, **kwargs)
+    with tracing.span("step.warp_loss"):
+        return warp_and_loss(disps, at_least_f32(aa), at_least_f32(tr), batch, cfg, **kwargs)
 
 
 @contextmanager
@@ -338,7 +345,8 @@ def forward(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig, *,
     `train_bn` its batch statistics are taken over the 2B pairs, as the JAX
     package takes them; the running statistics are updated in place.
     `outputs[('feat4',)]` is the pooled last depth feature."""
-    with _bn_mode(model, train_bn), _networks(cfg.bf16_networks, batch.rgb.device):
+    with tracing.span("step.encode"), _bn_mode(model, train_bn), \
+            _networks(cfg.bf16_networks, batch.rgb.device):
         depth_feats = model.depth_encode(batch.frame(0, aug=True))
         pose_feats = model.pose_encode(_pose_pairs(batch))
     losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feats[-1], rng=rng)
@@ -356,6 +364,7 @@ def _frozen_features(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig):
     return depth_feats, pose_feats[-1]
 
 
+@tracing.traced("step.embed")
 @full_fp32()
 def embed(model: DepthPoseNet, image: torch.Tensor, cfg: LossConfig) -> torch.Tensor:
     """L2-normalised pooled stage-4 depth-encoder feature of NHWC images."""
@@ -374,26 +383,30 @@ def _adapt_scan(state: TrainState, cfg: LossConfig, training: FrameBatch, num_st
     if num_steps < 1:
         raise ValueError(f"adaptation requires num_steps >= 1, got {num_steps}")
     model, opt = state.model, state.optimizer
-    depth_feats, pose_feat = _frozen_features(model, training, cfg)
-    feat4 = depth_feats[-1].mean((2, 3))
-    with torch.no_grad():
-        identity_base = identity_reprojection({
-            ("rgb", 0, 0): training.frame(0),
-            ("rgb", -1, 0): training.frame(-1),
-            ("rgb", 1, 0): training.frame(1),
-        })
-        pyramid = _image_pyramid(training.frame(0), len(cfg.scales))
+    with tracing.span("step.frozen"):
+        depth_feats, pose_feat = _frozen_features(model, training, cfg)
+        feat4 = depth_feats[-1].mean((2, 3))
+        with torch.no_grad():
+            identity_base = identity_reprojection({
+                ("rgb", 0, 0): training.frame(0),
+                ("rgb", -1, 0): training.frame(-1),
+                ("rgb", 1, 0): training.frame(1),
+            })
+            pyramid = _image_pyramid(training.frame(0), len(cfg.scales))
 
     iter_losses = []
     for _ in range(num_steps):
-        losses, outputs = _decode_and_loss(
-            model, training, cfg, depth_feats, pose_feat, rng=state.rng,
-            identity_base=identity_base, pyramid=pyramid,
-        )
-        opt.zero_grad(set_to_none=True)
-        losses["loss"].backward()
-        opt.step()
-        iter_losses.append(losses["loss"].detach())
+        with tracing.span("step.iter"):
+            losses, outputs = _decode_and_loss(
+                model, training, cfg, depth_feats, pose_feat, rng=state.rng,
+                identity_base=identity_base, pyramid=pyramid,
+            )
+            with tracing.span("step.backward"):
+                opt.zero_grad(set_to_none=True)
+                losses["loss"].backward()
+            with tracing.span("step.adam"):
+                opt.step()
+            iter_losses.append(losses["loss"].detach())
     if not with_outputs:
         return {}, {}, torch.stack(iter_losses), feat4
     losses = {k: v.detach() for k, v in losses.items()}
@@ -417,6 +430,7 @@ def _pack_retire(losses, outputs) -> torch.Tensor:
     return torch.cat(parts)
 
 
+@tracing.traced("step.adapt")
 @full_fp32()
 def adapt_step(
     state: TrainState,
@@ -437,12 +451,14 @@ def adapt_step(
     outputs[("embedding",)] = l2_normalize(feat4)
     if with_lc_embedding:
         outputs[("lc_embedding",)] = embed(state.model, training.frame(1)[:1], cfg)
-    outputs[("retire_packed",)] = _pack_retire(losses, outputs)
+    with tracing.span("step.pack"):
+        outputs[("retire_packed",)] = _pack_retire(losses, outputs)
     losses["iter_losses"] = iter_losses
     state.step += 1
     return losses, outputs
 
 
+@tracing.traced("step.consolidate")
 @full_fp32()
 def consolidate_step(state: TrainState, cfg: LossConfig, batch: FrameBatch, num_steps: int,
                      freeze_encoder: bool = True) -> torch.Tensor:
@@ -491,6 +507,7 @@ def consolidate_step_async(state: TrainState, cfg: LossConfig, batch: FrameBatch
     return clone, event
 
 
+@tracing.traced("step.eval")
 @torch.no_grad()
 @full_fp32()
 def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch,
@@ -500,16 +517,19 @@ def eval_step(model: DepthPoseNet, cfg: LossConfig, batch: FrameBatch,
     or K5, as the flags route it) and no backward kernel runs.  With
     `with_lc_embedding`, the loop-closure embedding of the +1 frames (the
     encoder only) is packed too."""
-    depth_feats, pose_feat = _frozen_features(model, batch, cfg)
+    with tracing.span("step.frozen"):
+        depth_feats, pose_feat = _frozen_features(model, batch, cfg)
     losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feat)
     outputs[("feat4",)] = depth_feats[-1].mean((2, 3))
     outputs[("embedding",)] = l2_normalize(outputs[("feat4",)])
     if with_lc_embedding:
         outputs[("lc_embedding",)] = embed(model, batch.frame(1), cfg)
-    outputs[("retire_packed",)] = _pack_retire(losses, outputs)
+    with tracing.span("step.pack"):
+        outputs[("retire_packed",)] = _pack_retire(losses, outputs)
     return losses, outputs
 
 
+@tracing.traced("step.train")
 @full_fp32()
 def train_step(state: TrainState, cfg: LossConfig, batch: FrameBatch) -> Dict[str, torch.Tensor]:
     """One pretraining step, in place: `forward` with batch norm in train
@@ -520,8 +540,10 @@ def train_step(state: TrainState, cfg: LossConfig, batch: FrameBatch) -> Dict[st
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     losses, _ = forward(state.model, batch, cfg, train_bn=True, rng=state.rng)
-    losses["loss"].backward()
-    opt.step()
+    with tracing.span("step.backward"):
+        losses["loss"].backward()
+    with tracing.span("step.adam"):
+        opt.step()
     state.step += 1
     return {k: v.detach() for k, v in losses.items()}
 

@@ -2,7 +2,6 @@
 its own)."""
 from tpuslam_torch.utils.profiling import (
     MetricsLogger,
-    StepTimer,
     profile_adapt_step,
     profile_host_pipeline,
     profile_sync_latency,
@@ -11,7 +10,6 @@ from tpuslam_torch.utils.profiling import (
 
 __all__ = [
     "MetricsLogger",
-    "StepTimer",
     "profile_adapt_step",
     "profile_host_pipeline",
     "profile_sync_latency",

@@ -2,10 +2,11 @@
 
 Counterpart of `tpuslam/utils/profiling.py`:
 
-- `StepTimer`: rolling per-step wall-clock statistics (frames per second is
-  the end-to-end metric).
 - `trace`: a context manager around `torch.profiler` that writes a Chrome
-  trace of the host and, on the card, of the device into `log_dir`.
+  trace of the host and, on the card, of the device into `log_dir`, with
+  the program's tracer (`tpuslam_torch.tracing`) on for its block;
+  `by_span` reduces such a trace to the device's time by the program's
+  spans (`reduce_by_span` on plain tuples).
 - `MetricsLogger`: an append-only JSONL metrics log, mirrored to wandb when
   that is installed (imported only when asked for).
 - `profile_host_pipeline`, `profile_sync_latency`, `profile_adapt_step`:
@@ -18,17 +19,18 @@ speed of PyTorch's CPU kernels, not of the card).
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import time
-from collections import deque
+from collections import Counter, defaultdict
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from tpuslam_torch import resolve_device
+from tpuslam_torch import resolve_device, tracing
 from tpuslam_torch.data.synthetic import SyntheticDataset
 from tpuslam_torch.models.depth_pose import init_depth_pose
 from tpuslam_torch.train.batch import concat_batches, make_frame_batch
@@ -36,40 +38,16 @@ from tpuslam_torch.train.state import TrainState, make_adapt_optimizer, make_tra
 from tpuslam_torch.train.steps import LossConfig, adapt_step
 
 
-class StepTimer:
-    def __init__(self, window: int = 100):
-        self.times = deque(maxlen=window)
-        self._t0: Optional[float] = None
-        self.total_steps = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-        self.total_steps += 1
-        return False
-
-    @property
-    def fps(self) -> float:
-        if not self.times:
-            return 0.0
-        return len(self.times) / sum(self.times)
-
-    @property
-    def mean_ms(self) -> float:
-        if not self.times:
-            return 0.0
-        return 1000.0 * sum(self.times) / len(self.times)
-
-
 @contextlib.contextmanager
 def trace(log_dir: Path, enabled: bool = True):
     """Profile the block with `torch.profiler` (host, and the device when
     CUDA is available) and write `log_dir/trace.json`, a Chrome trace
-    (chrome://tracing, Perfetto).  Yields the profiler, or None when not
-    enabled."""
+    (chrome://tracing, Perfetto).  The program's tracer is on for the block
+    (and off after it, unless it was on before), so the trace holds the
+    program's spans as `tracing.PREFIX` ranges, those of every thread (the
+    `Prefetcher`'s too), and `tracing.snapshot()` sums them up;
+    `by_span(prof)` gives the device's time by span.  Yields the profiler,
+    or None when not enabled."""
     if not enabled:
         yield None
         return
@@ -78,9 +56,120 @@ def trace(log_dir: Path, enabled: bool = True):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    was_on = tracing.on
+    tracing.enable()
+    try:
+        every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+        with torch.profiler.profile(activities=activities,
+                                    experimental_config=every_thread) as prof:
+            yield prof
+    finally:
+        if not was_on:
+            tracing.disable()
     prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+def _nested(ranges):
+    """One thread's ranges (start, end, name), sorted by start, with the
+    index of each one's enclosing range (-1 for none)."""
+    ranges = sorted(ranges, key=lambda r: (r[0], -r[1]))
+    parent, open_ = [], []
+    for i, (start, _, _) in enumerate(ranges):
+        while open_ and ranges[open_[-1]][1] <= start:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(i)
+    return ranges, [r[0] for r in ranges], parent
+
+
+def _innermost(nested, t: float):
+    """The innermost range of one thread's `_nested` ranges open at time t."""
+    ranges, starts, parent = nested
+    i = bisect.bisect_right(starts, t) - 1
+    while i >= 0 and ranges[i][1] < t:
+        i = parent[i]
+    return ranges[i] if i >= 0 else None
+
+
+def reduce_by_span(device, launches, ranges, min_gap_us: float = 10.0) -> dict:
+    """A profiler's trace by the host ranges around its device work, from
+    plain tuples (times in microseconds, names with their prefix):
+
+    - `device`: the device's activities (start, end, name, correlation id);
+    - `launches`: correlation id -> (time, thread) of the call that
+      launched the activity;
+    - `ranges`: host ranges (start, end, name, thread): the program's spans
+      (`tracing.PREFIX`) and any other annotation.
+
+    Each activity is given to the innermost program span open when its
+    launch was made, on the thread that made it, or, where that thread has
+    none open (autograd launches the backward from a thread of its own), to
+    the innermost open then on any thread that launches device work.  Each
+    gap of more than `min_gap_us` between activities is given to the
+    innermost range of either kind open at its middle on a launching thread.
+    Returns {"device_by_span": {span: s}, "launches_by_span": {span: n},
+    "idle_by_span": {range: s}}, names without their prefix; work outside
+    any span is "outside the spans"."""
+    outside = "outside the spans"
+    launching = {thread for _, thread in launches.values()}
+    every, program = defaultdict(list), defaultdict(list)
+    for start, end, name, thread in ranges:
+        every[thread].append((start, end, name.split(":", 1)[-1]))
+        if name.startswith(tracing.PREFIX):
+            program[thread].append((start, end, name[len(tracing.PREFIX):]))
+    every = {t: _nested(r) for t, r in every.items()}
+    program = {t: _nested(r) for t, r in program.items()}
+
+    def innermost(nested, t: float, thread=None):
+        if thread in nested:
+            found = _innermost(nested[thread], t)
+            if found is not None:
+                return found[2]
+        found = [r for r in (_innermost(nested[k], t) for k in launching if k in nested)
+                 if r is not None]
+        return min(found, key=lambda r: r[1] - r[0])[2] if found else outside
+
+    device_s, count = Counter(), Counter()
+    for start, end, _, corr in device:
+        launch = launches.get(corr)
+        name = innermost(program, *launch) if launch is not None else outside
+        device_s[name] += (end - start) / 1e6
+        count[name] += 1
+    idle = Counter()
+    activity = sorted((start, end) for start, end, _, _ in device)
+    last = activity[0][1] if activity else 0.0
+    for start, end in activity[1:]:
+        if start > last + min_gap_us:
+            idle[innermost(every, 0.5 * (start + last))] += (start - last) / 1e6
+        elif start > last:
+            idle[f"gaps under {min_gap_us:g} us"] += (start - last) / 1e6
+        last = max(last, end)
+    return {"device_by_span": dict(device_s), "launches_by_span": dict(count),
+            "idle_by_span": dict(idle)}
+
+
+def by_span(prof, annotations=(tracing.PREFIX,)) -> dict:
+    """`reduce_by_span` over the events of a finished `torch.profiler`
+    profile: its device activities, the runtime calls that launched them
+    (matched by correlation id), and its host ranges whose names start with
+    one of `annotations` (the program's spans and, say, a harness's own)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    device, ranges = [], []
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            # record_function ranges (the program's, the optimizer's, the
+            # profiler's steps) show on the device's timeline too
+            if not getattr(e, "is_user_annotation", False) and \
+                    not e.name.startswith(annotations + ("Optimizer.", "ProfilerStep")):
+                device.append((e.time_range.start, e.time_range.end, e.name, e.id))
+        elif e.name.startswith(annotations):
+            ranges.append((e.time_range.start, e.time_range.end, e.name, e.thread))
+    ids = {d[3] for d in device}
+    launches = {e.id: (e.time_range.start, e.thread) for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu") and e.id in ids}
+    return reduce_by_span(device, launches, ranges)
 
 
 class MetricsLogger:
