@@ -1996,8 +1996,9 @@ def main() -> int:
     build.build_kernels()
     wp.load_library()
     rp.load_library()
-    log("build", f"warp.cu and reproj.cu built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc, each started together: {build.build_seconds or 'cached'})")
+    log("build", f"warp.cu, reproj.cu and jitter.cpp built, the CUDA ones loaded, in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc and c++, each started together: "
+        f"{build.build_seconds or 'cached'})")
     t0 = time.perf_counter()
     pg_native.library()
     log("build", f"native/posegraph.cc built with g++ and loaded in "

@@ -4,10 +4,12 @@ Replaces the reference's torch Dataset/DataLoader stack
 (reference datasets/utils.py) with a lean numpy pipeline: datasets
 yield `Sample` records (full-resolution frame triplets + calibration); the
 multi-scale pyramid is built on-device inside the fused step, so the host
-only decodes, resizes to the working resolution, and color-jitters.
+only decodes, resizes to the working resolution, and color-jitters (a
+compiled host routine, `csrc/jitter.cpp`).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import queue
 import threading
@@ -114,7 +116,9 @@ def flip_sample_arrays(rgb, rgb_aug=None, mask=None):
 
 
 # ---------------------------------------------------------------------------
-# Color jitter (torchvision-equivalent, vectorised numpy)
+# Color jitter (torchvision-equivalent).  The single-op helpers are whole-image
+# numpy; `random_color_jitter` applies the same four ops pixel by pixel in
+# the compiled routine of `csrc/jitter.cpp`, which rounds like them.
 
 _GRAY = np.array([0.299, 0.587, 0.114], np.float32)
 
@@ -172,6 +176,23 @@ def adjust_hue(img: np.ndarray, factor: float) -> np.ndarray:
     return np.clip(out, 0.0, 1.0).astype(np.float32)
 
 
+_jitter_lib: Optional[ctypes.CDLL] = None
+
+
+def _jitter_library() -> ctypes.CDLL:
+    """The colour jitter's library, built by the host compiler at first use."""
+    global _jitter_lib
+    if _jitter_lib is None:
+        from tpuslam_torch.ops import build
+
+        lib = build.load_library("jitter")
+        lib.tpuslam_color_jitter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                             ctypes.c_void_p, ctypes.c_void_p]
+        lib.tpuslam_color_jitter.restype = None
+        _jitter_lib = lib
+    return _jitter_lib
+
+
 def random_color_jitter(
     rng: np.random.Generator,
     brightness=(0.8, 1.2),
@@ -180,20 +201,25 @@ def random_color_jitter(
     hue=(-0.1, 0.1),
 ) -> Callable[[np.ndarray], np.ndarray]:
     """Sample one jitter (shared across the triplet, like the reference's
-    per-item transform, datasets/utils.py:236-259) applied in random order."""
-    ops = [
-        lambda x, f=rng.uniform(*brightness): adjust_brightness(x, f),
-        lambda x, f=rng.uniform(*contrast): adjust_contrast(x, f),
-        lambda x, f=rng.uniform(*saturation): adjust_saturation(x, f),
-        lambda x, f=rng.uniform(*hue): adjust_hue(x, f),
-    ]
-    order = rng.permutation(len(ops))
+    per-item transform, datasets/utils.py:236-259) applied in random order.
+
+    The returned function takes an (H, W, 3) image in [0, 1] and returns a
+    new C-contiguous float32 image; the tracer counts it (`jitter_images`)."""
+    factors = np.array([rng.uniform(*brightness), rng.uniform(*contrast),
+                        rng.uniform(*saturation), rng.uniform(*hue)], np.float64)
+    order = rng.permutation(len(factors)).astype(np.int32)
 
     def apply(img: np.ndarray) -> np.ndarray:
         with tracing.span("data.jitter"):
-            for i in order:
-                img = ops[i](img)
-        return img
+            src = np.ascontiguousarray(img, np.float32)
+            if src.ndim != 3 or src.shape[-1] != 3:
+                raise ValueError(f"colour jitter takes (H, W, 3) images, got {src.shape}")
+            out = np.empty_like(src)
+            _jitter_library().tpuslam_color_jitter(
+                src.ctypes.data, out.ctypes.data, src.size // 3, order.ctypes.data,
+                factors.ctypes.data)
+        tracing.count("jitter_images")
+        return out
 
     return apply
 
