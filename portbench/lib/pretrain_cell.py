@@ -106,7 +106,7 @@ def run(args, cell: dict, spec: dict, traffic: dict, result: dict) -> dict:
     import tpuslam_torch.train.pretrain as pm
     from tpuslam_torch.models.depth_pose import DepthPoseNet
 
-    from portbench.lib.weights import seeded_state_dict
+    from portbench.lib.weights import encoder_depths, seeded_state_dict
 
     setup = {"import_s": time.perf_counter() - t}
     if env.on_card():
@@ -126,10 +126,10 @@ def run(args, cell: dict, spec: dict, traffic: dict, result: dict) -> dict:
     setup["inputs_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    sd = seeded_state_dict(seeds[2], tuple(run_cfg["scales"]), env.DEVICE)
+    depths = encoder_depths(run_cfg)
+    sd = seeded_state_dict(seeds[2], tuple(run_cfg["scales"]), env.DEVICE, *depths)
     with torch.device("meta"):
-        model = DepthPoseNet(run_cfg["resnet_depth"], run_cfg["resnet_pose"],
-                             tuple(run_cfg["scales"]))
+        model = DepthPoseNet(*depths, tuple(run_cfg["scales"]))
     model = model.to_empty(device=env.DEVICE)
     model.load_state_dict(sd)
     model.eval()
@@ -266,18 +266,27 @@ def _moved(after: dict, before: dict) -> dict:
     return {n: float((after[n] - before[n]).norm()) for n in before}
 
 
+def _reference_net(run_cfg: dict, seeds):
+    """The seeded weights and the reference's networks at the
+    configuration's depths, loaded with them."""
+    from portbench.lib.weights import encoder_depths, seeded_state_dict
+    from portbench.reference import steps as ref
+
+    depths = encoder_depths(run_cfg)
+    sd = seeded_state_dict(seeds[2], tuple(run_cfg["scales"]), env.DEVICE, *depths)
+    return sd, ref.build(sd, tuple(run_cfg["scales"]), env.DEVICE, "float32", *depths)
+
+
 def reference_window(program: dict, spec: dict, seeds, precision: str = "float32") -> list:
     """One reference step from the program's state before each window step
     kept, on the program's batch."""
     import torch
 
-    from portbench.lib.weights import seeded_state_dict
     from portbench.reference import steps as ref
 
     run_cfg = spec["run"]["Pretrainer"]
     ref.no_tf32(precision != "tf32")
-    sd = seeded_state_dict(seeds[2], tuple(run_cfg["scales"]), env.DEVICE)
-    net = ref.build(sd, tuple(run_cfg["scales"]), env.DEVICE)
+    sd, net = _reference_net(run_cfg, seeds)
     del sd
     params = dict(net.named_parameters())
     stats = {n: b for n, b in net.named_buffers() if n.endswith(("running_mean", "running_var"))}
@@ -310,13 +319,11 @@ def reference_answers(program: dict, spec: dict, seeds, precision: str = "float3
     batches (whose rows were held to what the pool served)."""
     import torch
 
-    from portbench.lib.weights import seeded_state_dict
     from portbench.reference import steps as ref
 
     run_cfg = spec["run"]["Pretrainer"]
     ref.no_tf32(precision != "tf32")
-    sd = seeded_state_dict(seeds[2], tuple(run_cfg["scales"]), env.DEVICE)
-    net = ref.build(sd, tuple(run_cfg["scales"]), env.DEVICE)
+    sd, net = _reference_net(run_cfg, seeds)
     names = [n for n, _ in net.named_parameters()]
     opt = ref.Adam([p for _, p in net.named_parameters()], run_cfg["learning_rate"])
     gen = torch.Generator(device=env.DEVICE).manual_seed(run_cfg["seed"])

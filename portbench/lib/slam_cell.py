@@ -159,7 +159,7 @@ def run(args, cell: dict, spec: dict, traffic: dict, result: dict) -> dict:
     from tpuslam_torch.ops import build, reproj, warp
     from tpuslam_torch.posegraph import native
 
-    from portbench.lib.weights import seeded_state_dict
+    from portbench.lib.weights import encoder_depths, seeded_state_dict
 
     setup = {"import_s": time.perf_counter() - t}
     t = time.perf_counter()
@@ -182,7 +182,8 @@ def run(args, cell: dict, spec: dict, traffic: dict, result: dict) -> dict:
     slam = slam_module.Slam(cfg, dataset=stream, device=env.DEVICE)
     setup["program_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    slam.state.model.load_state_dict(seeded_state_dict(seeds[2], cfg.depth_pose.scales, env.DEVICE))
+    slam.state.model.load_state_dict(seeded_state_dict(
+        seeds[2], cfg.depth_pose.scales, env.DEVICE, *encoder_depths(vars(cfg.depth_pose))))
     setup["weights_s"] = time.perf_counter() - t
     program = drive(slam, stream, cell, seeds, args, result, setup)
     result["run"].update(spec=spec, settings=settings(spec, cell))
@@ -323,13 +324,14 @@ def reference_net(cfg, seeds, precision: str = "float32"):
     fp8 convolutions for its bf16 ones and the warp stored one type below
     the configuration's storage; "bf16": bf16 convolutions (a look at what
     rounding alone does)."""
-    from portbench.lib.weights import seeded_state_dict
+    from portbench.lib.weights import encoder_depths, seeded_state_dict
     from portbench.reference import steps as ref
 
     ref.no_tf32(True)
-    sd = seeded_state_dict(seeds[2], cfg.depth_pose.scales, env.DEVICE)
+    depths = encoder_depths(vars(cfg.depth_pose))
+    sd = seeded_state_dict(seeds[2], cfg.depth_pose.scales, env.DEVICE, *depths)
     net = ref.build(sd, cfg.depth_pose.scales, env.DEVICE,
-                    {"control": "fp8"}.get(precision, precision))
+                    {"control": "fp8"}.get(precision, precision), *depths)
     for n, p in net.named_parameters():
         p.requires_grad_(n.startswith(("depth_decoder.", "pose_decoder.")))
     return net

@@ -1,11 +1,24 @@
-"""Plain float32 monodepth2 networks: ResNet-18 depth and pose encoders, the
+"""Plain float32 monodepth2 networks: ResNet depth and pose encoders, the
 U-Net depth decoder and the pose decoder (Godard et al., ICCV 2019, as
 CL-SLAM uses them).
 
+The encoders hold the depths monodepth2 offers (`--num_layers`), as
+torchvision's trunks without `fc` (He et al., CVPR 2016, table 1):
+- 18 and 34: BasicBlock, stages (2, 2, 2, 2) and (3, 4, 6, 3), channels
+  (64, 64, 128, 256, 512);
+- 50: Bottleneck (1x1, 3x3 with the stride, 1x1 to 4x the width:
+  torchvision's v1.5 block), stages (3, 4, 6, 3), channels
+  (64, 256, 512, 1024, 2048), as monodepth2's `resnet_encoder.py` widens
+  `num_ch_enc[1:]` by 4 above 34 layers.
+Each decoder takes its own encoder's channels (`depth_decoder.py`,
+`pose_decoder.py`): the depth decoder's skips and the pose squeeze follow
+them.
+
 A frozen copy of the equations, written without anything of the program:
-parameter names follow the monodepth2 checkpoints (`resnet.layer1.0.conv1`,
-`upconv_4_0.conv.conv`, `dispconv_0.conv`, `squeeze`, `pose_0`), so one state
-dict made by the benchmark loads into both sides.
+parameter names follow torchvision and the monodepth2 checkpoints
+(`resnet.layer1.0.conv1`, `resnet.layer1.0.conv3` at 50,
+`upconv_4_0.conv.conv`, `dispconv_0.conv`, `squeeze`, `pose_0`), so one
+state dict made by the benchmark loads into both sides.
 
 Departures from the published description, each shared with the program
 under test:
@@ -25,14 +38,13 @@ under test:
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-RESNET_STAGES = {18: (2, 2, 2, 2)}
-ENCODER_CHANNELS = (64, 64, 128, 256, 512)
+STAGE_PLANES = (64, 128, 256, 512)
 DECODER_CHANNELS = (16, 32, 64, 128, 256)
 PRECISIONS = ("float32", "bf16", "fp8")
 
@@ -99,6 +111,8 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
@@ -117,24 +131,66 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        width = planes * self.expansion
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = Conv2d(planes, width, 1, bias=False)
+        self.bn3 = BatchNorm(width)
+        self.downsample = None
+        if stride != 1 or inplanes != width:
+            self.downsample = nn.Sequential(Conv2d(inplanes, width, 1, stride, bias=False),
+                                            BatchNorm(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + residual)
+
+
+# depth -> (block, blocks a stage)
+RESNET_STAGES = {18: (BasicBlock, (2, 2, 2, 2)), 34: (BasicBlock, (3, 4, 6, 3)),
+                 50: (Bottleneck, (3, 4, 6, 3))}
+
+
+def encoder_channels(num_layers: int) -> Tuple[int, ...]:
+    """The five feature maps' channels of a ResNet of `num_layers`."""
+    block, _ = RESNET_STAGES[num_layers]
+    return (64,) + tuple(p * block.expansion for p in STAGE_PLANES)
+
+
+ENCODER_CHANNELS = encoder_channels(18)
+
+
 class _ResNet(nn.Module):
     def __init__(self, num_layers: int, in_channels: int):
         super().__init__()
+        if num_layers not in RESNET_STAGES:
+            raise ValueError(f"no ResNet-{num_layers} here: {sorted(RESNET_STAGES)}")
+        block, stages = RESNET_STAGES[num_layers]
         self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         inplanes = 64
-        for i, (blocks, planes) in enumerate(zip(RESNET_STAGES[num_layers],
-                                                 ENCODER_CHANNELS[1:])):
+        for i, (blocks, planes) in enumerate(zip(stages, STAGE_PLANES)):
             stride = 1 if i == 0 else 2
-            layer = [BasicBlock(inplanes, planes, stride)]
-            layer += [BasicBlock(planes, planes) for _ in range(blocks - 1)]
+            layer = [block(inplanes, planes, stride)]
+            inplanes = planes * block.expansion
+            layer += [block(inplanes, planes) for _ in range(blocks - 1)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
-            inplanes = planes
 
 
 class ResNetEncoder(nn.Module):
     def __init__(self, num_layers: int = 18, num_input_images: int = 1):
         super().__init__()
+        self.num_ch_enc = encoder_channels(num_layers)
         self.resnet = _ResNet(num_layers, 3 * num_input_images)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -177,13 +233,14 @@ class ConvBlock(nn.Module):
 
 
 class DepthDecoder(nn.Module):
-    def __init__(self, scales: Sequence[int] = (0, 1, 2, 3)):
+    def __init__(self, scales: Sequence[int] = (0, 1, 2, 3),
+                 num_ch_enc: Sequence[int] = ENCODER_CHANNELS):
         super().__init__()
         self.scales = tuple(scales)
         for i in range(4, -1, -1):
-            ch_in = ENCODER_CHANNELS[-1] if i == 4 else DECODER_CHANNELS[i + 1]
+            ch_in = num_ch_enc[-1] if i == 4 else DECODER_CHANNELS[i + 1]
             setattr(self, f"upconv_{i}_0", ConvBlock(ch_in, DECODER_CHANNELS[i]))
-            ch_in = DECODER_CHANNELS[i] + (ENCODER_CHANNELS[i - 1] if i > 0 else 0)
+            ch_in = DECODER_CHANNELS[i] + (num_ch_enc[i - 1] if i > 0 else 0)
             setattr(self, f"upconv_{i}_1", ConvBlock(ch_in, DECODER_CHANNELS[i]))
         for s in self.scales:
             setattr(self, f"dispconv_{s}", Conv3x3(DECODER_CHANNELS[s], 1))
@@ -206,9 +263,9 @@ class DepthDecoder(nn.Module):
 
 
 class PoseDecoder(nn.Module):
-    def __init__(self):
+    def __init__(self, num_ch_in: int = ENCODER_CHANNELS[-1]):
         super().__init__()
-        self.squeeze = Conv2d(512, 256, 1)
+        self.squeeze = Conv2d(num_ch_in, 256, 1)
         self.pose_0 = Conv2d(256, 256, 3, 1, 1)
         self.pose_1 = Conv2d(256, 256, 3, 1, 1)
         self.pose_2 = Conv2d(256, 12, 1)
@@ -224,13 +281,17 @@ class PoseDecoder(nn.Module):
 
 
 class DepthPoseNet(nn.Module):
+    """The depth encoder at `resnet` layers, the pose encoder at
+    `resnet_pose` (by default the same), each decoder at its encoder's
+    channels."""
+
     def __init__(self, scales: Sequence[int] = (0, 1, 2, 3), resnet: int = 18,
-                 precision: str = "float32"):
+                 precision: str = "float32", resnet_pose: Optional[int] = None):
         super().__init__()
         self.depth_encoder = ResNetEncoder(resnet, 1)
-        self.depth_decoder = DepthDecoder(scales)
-        self.pose_encoder = ResNetEncoder(resnet, 2)
-        self.pose_decoder = PoseDecoder()
+        self.depth_decoder = DepthDecoder(scales, self.depth_encoder.num_ch_enc)
+        self.pose_encoder = ResNetEncoder(resnet if resnet_pose is None else resnet_pose, 2)
+        self.pose_decoder = PoseDecoder(self.pose_encoder.num_ch_enc[-1])
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}")
         for m in self.modules():

@@ -48,9 +48,9 @@ class Adam:
             p.grad = None
 
 
-def build(state_dict: Dict[str, torch.Tensor], scales, device,
-          precision: str = "float32") -> DepthPoseNet:
-    net = DepthPoseNet(scales, precision=precision).to(device)
+def build(state_dict: Dict[str, torch.Tensor], scales, device, precision: str = "float32",
+          resnet_depth: int = 18, resnet_pose: int = 18) -> DepthPoseNet:
+    net = DepthPoseNet(scales, resnet_depth, precision, resnet_pose).to(device)
     net.load_state_dict(state_dict)
     return net.eval()
 

@@ -16,7 +16,7 @@ if str(ROOT) not in sys.path:
 
 from portbench.lib import env, spec  # noqa: E402
 
-CELLS = ("adapt-kitti-seq", "pretrain-cityscapes-b18")
+CELLS = tuple(w["name"] for w in spec.manifest()["workloads"])
 
 
 def shrink(monkeypatch, device: str = "cpu") -> None:
