@@ -2,10 +2,13 @@
 on its hot path, on the CPU at tiny sizes: the span tree of an adapting
 `Slam` frame, the tracer off (nothing recorded, no profiler call) and on
 (the same losses and poses), the bytes `make_frame_batch` ships, the
-`Prefetcher`'s two threads, `profiling.trace`, and the reduction of a
-profiler's trace by span on hand-made tuples."""
+`Prefetcher`'s two threads, `profiling.trace`, the encoders' spans and
+images at ResNet-50, and the reduction of a profiler's trace by span on
+hand-made tuples."""
+import copy
 import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,9 +18,13 @@ from tpuslam_torch import tracing
 from tpuslam_torch.config import Config
 from tpuslam_torch.config.schema import DatasetConfig, DepthPoseConfig, SlamConfig
 from tpuslam_torch.data.base import Prefetcher, Sample, random_color_jitter
+from tpuslam_torch.data.synthetic import SyntheticDataset
+from tpuslam_torch.models.depth_pose import init_depth_pose
 from tpuslam_torch.slam import Slam
 from tpuslam_torch.train.batch import make_frame_batch
 from tpuslam_torch.train.pretrain import host_batches
+from tpuslam_torch.train.state import make_pretrain_optimizer, make_train_state
+from tpuslam_torch.train.steps import LossConfig, adapt_step, train_step
 from tpuslam_torch.utils.profiling import reduce_by_span, trace
 
 torch.set_num_threads(1)
@@ -182,6 +189,71 @@ def test_prefetcher_spans_share_batch_ids_across_threads():
             assert all(k.uid == r.uid for k in kids)
     spans = tracing.snapshot()["spans"]
     assert spans["data.jitter"]["count"] == 6 * 3
+
+
+def _steps_at_resnet50():
+    """A ResNet-50 model, a batch of 2 triplets at 32 x 64 and a loss
+    config of the plain sampler, float32."""
+    ds = SyntheticDataset(num_frames=3, height=32, width=64, do_augmentation=True)
+    samples = [ds[i] for i in range(2)]
+    batch = make_frame_batch(np.stack([s.rgb for s in samples]), ds.K,
+                             np.stack([s.rel_dist for s in samples]),
+                             rgb_aug=np.stack([s.aug for s in samples]), device="cpu")
+    cfg = LossConfig(scales=(0, 1), use_pallas_warp=False, pallas_bf16_out=False,
+                     bf16_networks=False)
+    return init_depth_pose(0, resnet_depth=50, resnet_pose=50, scales=(0, 1), device="cpu"), \
+        batch, cfg
+
+
+def _train(model, batch, cfg, steps: int = 2):
+    state = make_train_state(model, make_pretrain_optimizer(model, 1e-4), seed=3)
+    return [train_step(state, cfg, batch)["loss"] for _ in range(steps)]
+
+
+def _encoder_children(records, around: str):
+    return [[r.name for r in _children(records, i)]
+            for i, r in enumerate(records) if r.name == around]
+
+
+def test_encoder_spans_at_resnet50():
+    """At ResNet-50: `train_step`'s `step.encode` holds `step.encode.depth`
+    then `step.encode.pose`, and `adapt_step`'s `step.frozen` holds the
+    same two; neither step counts anything.  Off, nothing is recorded and
+    the losses are those of the tracer on, bit for bit."""
+    model, batch, cfg = _steps_at_resnet50()
+    start = copy.deepcopy(model)
+    off = _train(model, batch, cfg)
+    assert tracing.snapshot() == {"spans": {}, "counters": {}}
+
+    tracing.enable()
+    model = copy.deepcopy(start)
+    on = _train(model, batch, cfg)
+    records = tracing.records()
+    assert _encoder_children(records, "step.encode") == [
+        ["step.encode.depth", "step.encode.pose"]] * 2
+    assert tracing.snapshot()["counters"] == {}
+    assert [float(x) for x in on] == [float(x) for x in off]
+
+    tracing.reset()
+    model.requires_grad_(False)
+    model.depth_decoder.requires_grad_(True)
+    model.pose_decoder.requires_grad_(True)
+    state = make_train_state(model, torch.optim.Adam(
+        [p for p in model.parameters() if p.requires_grad], lr=1e-4), seed=3)
+    adapt_step(state, cfg, batch, 2)
+    records = tracing.records()
+    frozen = [i for i, r in enumerate(records) if r.name == "step.frozen"]
+    assert len(frozen) == 1
+    assert [r.name for r in _children(records, frozen[0])] == [
+        "step.encode.depth", "step.encode.pose"]
+    assert tracing.snapshot()["counters"] == {}
+
+
+def test_readme_names_the_encoder_spans():
+    """The README's list of spans names the encoders' own."""
+    readme = (Path(__file__).resolve().parents[1] / "README.md").read_text()
+    for name in ("step.encode.depth", "step.encode.pose"):
+        assert name in readme, name
 
 
 def test_trace_turns_the_tracer_on_for_its_block(tmp_path):

@@ -22,6 +22,7 @@ import torch
 
 from tpuslam_torch.models.depth_pose import DepthPoseNet
 from tpuslam_torch.models.embedder import STEM_CHANNELS, V3_SMALL
+from tpuslam_torch.models.resnet import RESNET_STAGES, BasicBlock
 
 
 def _resnet_keys(flax_params: Mapping, flax_stats: Mapping, prefix: str) -> Dict[str, Any]:
@@ -85,7 +86,14 @@ def jax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, np.nda
 
 def load_jax_variables(model: DepthPoseNet, params: Mapping, batch_stats: Mapping) -> None:
     """Copy flax variables into `model` in place (parameters keep their
-    identity, so an optimizer built on them stays valid)."""
+    identity, so an optimizer built on them stays valid).  The JAX package
+    holds BasicBlock encoders only (ResNet-18 and 34): a model with a
+    deeper encoder raises ValueError."""
+    for net in ("depth_encoder", "pose_encoder"):
+        depth = getattr(model, net).num_layers
+        if RESNET_STAGES[depth][0] is not BasicBlock:
+            raise ValueError(f"{net} is a ResNet-{depth}: the JAX package's networks hold "
+                             "ResNet-18 and 34 encoders only, so no flax variables fit it")
     arrays = jax_to_state_dict(params, batch_stats)
     state = {k: v for k, v in model.state_dict().items()
              if not k.endswith("num_batches_tracked")}

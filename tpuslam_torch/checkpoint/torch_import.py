@@ -8,7 +8,8 @@ initialises both encoders, the depth encoder as it is and the 2-image pose
 encoder with its stem `conv1` repeated over the stacked input channels and
 divided by 2, so that activations keep their single-image magnitude.  The
 classifier (`fc.*`) is dropped.  The port's encoders carry torchvision's key
-names under `resnet.`, so the state dict loads without renaming.
+names under `resnet.` (`conv3` / `bn3` in ResNet-50's Bottlenecks), so the
+state dict loads without renaming.
 
 `load_mobilenet_embedder` reads a torchvision `mobilenet_v3_small` `.pth`
 (with or without a `state_dict` wrapper) into `MobileNetV3SmallEmbedder`,
@@ -51,7 +52,8 @@ def imagenet_encoder_state(state: Dict[str, torch.Tensor],
 
 def load_imagenet_encoders(model: DepthPoseNet, path: Path) -> None:
     """Load a torchvision ResNet `.pth` into both encoders of `model`, in
-    place.  A stem whose shape does not fit raises ValueError."""
+    place.  A stem whose shape does not fit, or the keys of another depth,
+    raise ValueError."""
     state = torch.load(Path(path), map_location="cpu", weights_only=True)
     for net, images in (("depth_encoder", 1), ("pose_encoder", 2)):
         encoder = getattr(model, net)
@@ -65,6 +67,11 @@ def load_imagenet_encoders(model: DepthPoseNet, path: Path) -> None:
         # torchvision checkpoints before v0.4 lack num_batches_tracked
         saved.update({k: v for k, v in current.items()
                       if k.endswith("num_batches_tracked") and k not in saved})
+        if set(saved) != set(current):
+            raise ValueError(f"{net} is a ResNet-{encoder.num_layers}: the checkpoint lacks "
+                             f"{sorted(set(current) - set(saved))[:3]} and has "
+                             f"{sorted(set(saved) - set(current))[:3]} besides — another "
+                             "ResNet depth?")
         encoder.load_state_dict(saved)
 
 

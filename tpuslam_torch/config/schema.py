@@ -157,8 +157,9 @@ class LoopClosureConfig:
     detection_threshold: float = 0.99
     id_threshold: int = 250
     num_matches: int = 1
-    # 'mobilenet' (576-d, reference parity) or 'depth_encoder' (512-d pooled
-    # stage-4 feature, zero extra FLOPs — the TPU-native default)
+    # 'mobilenet' (576-d, reference parity) or 'depth_encoder' (the pooled
+    # stage-4 feature, 512-d at ResNet-18/34 and 2048-d at 50, zero extra
+    # FLOPs — the TPU-native default)
     embedder: str = "depth_encoder"
     # torchvision mobilenet_v3_small .pth to load for the 'mobilenet'
     # embedder (reference uses ImageNet weights; random init degrades

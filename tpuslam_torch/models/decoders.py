@@ -90,13 +90,14 @@ class DepthDecoder(nn.Module):
 
 
 class PoseDecoder(nn.Module):
-    """Pose regression head on the last encoder stage -> (axis_angle,
-    translation), each (B, num_frames_to_predict_for, 3), scaled by 0.01."""
+    """Pose regression head on the last encoder stage (`num_ch_in` channels,
+    the encoder's last width) -> (axis_angle, translation), each
+    (B, num_frames_to_predict_for, 3), scaled by 0.01."""
 
-    def __init__(self, num_frames_to_predict_for: int = 2):
+    def __init__(self, num_ch_in: int = 512, num_frames_to_predict_for: int = 2):
         super().__init__()
         self.num_frames = num_frames_to_predict_for
-        self.squeeze = nn.Conv2d(512, 256, 1)
+        self.squeeze = nn.Conv2d(num_ch_in, 256, 1)
         self.pose_0 = nn.Conv2d(256, 256, 3, 1, 1)
         self.pose_1 = nn.Conv2d(256, 256, 3, 1, 1)
         self.pose_2 = nn.Conv2d(256, 6 * num_frames_to_predict_for, 1)

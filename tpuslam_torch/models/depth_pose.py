@@ -3,7 +3,9 @@
 Counterpart of `tpuslam/models/depth_pose.py`: the reference's four networks
 {depth_encoder, depth_decoder, pose_encoder, pose_decoder}, with the encoder
 and decoder halves exposed separately so online adaptation can run the frozen
-encoders once per frame and iterate over the decoders only.
+encoders once per frame and iterate over the decoders only.  Each decoder
+takes its own encoder's widths: the depth decoder's skips and the pose
+squeeze follow `num_ch_encoder` (D = 512 at ResNet-18/34, 2048 at 50).
 """
 from __future__ import annotations
 
@@ -22,13 +24,15 @@ class DepthPoseNet(nn.Module):
                  scales: Tuple[int, ...] = (0, 1, 2, 3)):
         super().__init__()
         self.depth_encoder = ResNetEncoder(resnet_depth, num_input_images=1)
-        self.depth_decoder = DepthDecoder(ResNetEncoder.num_ch_encoder, scales)
+        self.depth_decoder = DepthDecoder(self.depth_encoder.num_ch_encoder, scales)
         self.pose_encoder = ResNetEncoder(resnet_pose, num_input_images=2)
-        self.pose_decoder = PoseDecoder(num_frames_to_predict_for=2)
+        self.pose_decoder = PoseDecoder(self.pose_encoder.num_ch_encoder[-1],
+                                        num_frames_to_predict_for=2)
 
     def depth_forward(self, image: torch.Tensor):
         """image (B, H, W, 3) -> ({('disp', s)}, pooled stage-4 feature
-        (B, 512)); the feature doubles as the replay-buffer embedding."""
+        (B, D), D the depth encoder's last width); the feature doubles as the
+        replay-buffer embedding."""
         features = self.depth_encode(image)
         return self.depth_decode(features), features[-1].mean((2, 3))
 

@@ -1,10 +1,14 @@
-"""ResNet-18/34 feature-pyramid encoder.
+"""ResNet-18/34/50 feature-pyramid encoder.
 
 Counterpart of `tpuslam/models/resnet.py`: input normalisation
-(x - 0.45) / 0.225 in the forward pass, five feature stages with channels
-(64, 64, 128, 256, 512), and a multi-image stem (conv1 over 3 *
-num_input_images channels) for the pose network.  Modules carry the
-monodepth2 / torchvision names (`resnet.conv1`, `resnet.layer1.0.conv1`,
+(x - 0.45) / 0.225 in the forward pass, five feature stages, and a
+multi-image stem (conv1 over 3 * num_input_images channels) for the pose
+network.  ResNet-18 and 34 stack BasicBlocks, channels
+(64, 64, 128, 256, 512); ResNet-50 stacks torchvision's v1.5 Bottlenecks
+(1x1, 3x3 with the stride, 1x1 to four times the width), channels
+(64, 256, 512, 1024, 2048), as monodepth2's `--num_layers 50` (the JAX
+package holds 18 and 34 only).  Modules carry the monodepth2 / torchvision
+names (`resnet.conv1`, `resnet.layer1.0.conv1`, `...conv3` at 50,
 `...downsample.0`), so reference `.pth` state dicts load directly.
 
 Takes NHWC images and returns NCHW feature maps in float32, or float64 for a
@@ -32,8 +36,7 @@ import torch.nn.functional as F
 
 from tpuslam_torch import at_least_f32
 
-RESNET_STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
-ENCODER_CHANNELS = (64, 64, 128, 256, 512)
+STAGE_PLANES = (64, 128, 256, 512)
 
 
 class _SyncBatchNorm(torch.autograd.Function):
@@ -112,6 +115,8 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
@@ -131,6 +136,45 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+class Bottleneck(nn.Module):
+    """torchvision's v1.5 bottleneck: the stride on the 3x3."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        width = planes * self.expansion
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = nn.Conv2d(planes, width, 1, bias=False)
+        self.bn3 = BatchNorm(width)
+        self.downsample = None
+        if stride != 1 or inplanes != width:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, width, 1, stride, bias=False), BatchNorm(width)
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + residual)
+
+
+# depth -> (block, blocks a stage)
+RESNET_STAGES = {18: (BasicBlock, (2, 2, 2, 2)), 34: (BasicBlock, (3, 4, 6, 3)),
+                 50: (Bottleneck, (3, 4, 6, 3))}
+
+
+def encoder_channels(num_layers: int) -> Tuple[int, ...]:
+    """The channels of the five feature maps of a ResNet of `num_layers`."""
+    block, _ = RESNET_STAGES[num_layers]
+    return (64,) + tuple(p * block.expansion for p in STAGE_PLANES)
+
+
 class _ResNet(nn.Module):
     """The torchvision ResNet trunk without its classifier."""
 
@@ -138,26 +182,27 @@ class _ResNet(nn.Module):
         super().__init__()
         if num_layers not in RESNET_STAGES:
             raise ValueError(f"Unsupported ResNet depth: {num_layers}")
+        block, stages = RESNET_STAGES[num_layers]
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         inplanes = 64
-        for i, (blocks, planes) in enumerate(zip(RESNET_STAGES[num_layers],
-                                                 ENCODER_CHANNELS[1:])):
+        for i, (blocks, planes) in enumerate(zip(stages, STAGE_PLANES)):
             stride = 1 if i == 0 else 2
-            layer = [BasicBlock(inplanes, planes, stride)]
-            layer += [BasicBlock(planes, planes) for _ in range(blocks - 1)]
+            layer = [block(inplanes, planes, stride)]
+            inplanes = planes * block.expansion
+            layer += [block(inplanes, planes) for _ in range(blocks - 1)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
-            inplanes = planes
 
 
 class ResNetEncoder(nn.Module):
-    """Five-stage feature pyramid; `num_input_images` stacks RGB channel-wise."""
-
-    num_ch_encoder: Tuple[int, ...] = ENCODER_CHANNELS
+    """Five-stage feature pyramid; `num_input_images` stacks RGB channel-wise.
+    `num_ch_encoder` holds the five maps' channels."""
 
     def __init__(self, num_layers: int = 18, num_input_images: int = 1):
         super().__init__()
         self.resnet = _ResNet(num_layers, 3 * num_input_images)
+        self.num_layers = num_layers
+        self.num_ch_encoder = encoder_channels(num_layers)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, H, W, 3 * num_input_images) in [0, 1] -> 5 NCHW feature maps."""

@@ -193,8 +193,9 @@ class Slam:
         else:
             self.replay_buffer = None
 
-        # loop closures on the depth encoder's 512-d pooled stage-4 feature,
-        # or on the 576-d MobileNetV3-small embedding
+        # loop closures on the depth encoder's pooled stage-4 feature (512-d
+        # at ResNet-18/34, 2048-d at 50), or on the 576-d MobileNetV3-small
+        # embedding
         lc = config.loop_closure
         self._mobilenet = None
         if lc.embedder == "mobilenet":
@@ -216,7 +217,8 @@ class Slam:
             detection_threshold=lc.detection_threshold,
             id_threshold=lc.id_threshold,
             num_matches=lc.num_matches,
-            num_features=512 if self._mobilenet is None else self._mobilenet.num_features,
+            num_features=(self.model.depth_encoder.num_ch_encoder[-1] if self._mobilenet is None
+                          else self._mobilenet.num_features),
         )
         self.lc_edge_diagnostics: List[dict] = []
         # frame +1 images of loop-closure candidates, least recently used first

@@ -21,8 +21,9 @@ optimizer step over every parameter.
 
 With the tracer on (`tpuslam_torch.tracing`) each step is a span
 (`step.adapt`, `step.eval`, `step.consolidate`, `step.train`) holding its
-phases: `step.frozen` or `step.encode`, then per iteration `step.iter` with
-`step.decode`, `step.warp_loss`, `step.backward`, `step.adam`, and
+phases: `step.frozen` or `step.encode`, each holding `step.encode.depth`
+and `step.encode.pose` (the two encoders), then per iteration `step.iter`
+with `step.decode`, `step.warp_loss`, `step.backward`, `step.adam`, and
 `step.embed`, `step.pack`.
 """
 from __future__ import annotations
@@ -347,8 +348,7 @@ def forward(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig, *,
     `outputs[('feat4',)]` is the pooled last depth feature."""
     with tracing.span("step.encode"), _bn_mode(model, train_bn), \
             _networks(cfg.bf16_networks, batch.rgb.device):
-        depth_feats = model.depth_encode(batch.frame(0, aug=True))
-        pose_feats = model.pose_encode(_pose_pairs(batch))
+        depth_feats, pose_feats = _encode(model, batch)
     losses, outputs = _decode_and_loss(model, batch, cfg, depth_feats, pose_feats[-1], rng=rng)
     outputs[("feat4",)] = depth_feats[-1].mean((2, 3))
     return losses, outputs
@@ -359,9 +359,18 @@ def _frozen_features(model: DepthPoseNet, batch: FrameBatch, cfg: LossConfig):
     running BN statistics and fixed inputs make them the same in every
     adaptation iteration, so they are computed once per frame."""
     with torch.no_grad(), _networks(cfg.bf16_networks, batch.rgb.device):
-        depth_feats = model.depth_encode(batch.frame(0, aug=True))
-        pose_feats = model.pose_encode(_pose_pairs(batch))
+        depth_feats, pose_feats = _encode(model, batch)
     return depth_feats, pose_feats[-1]
+
+
+def _encode(model: DepthPoseNet, batch: FrameBatch):
+    """Both encoders' feature pyramids: the depth encoder's of the augmented
+    frame 0, the pose encoder's of the 2B pairs."""
+    with tracing.span("step.encode.depth"):
+        depth_feats = model.depth_encode(batch.frame(0, aug=True))
+    with tracing.span("step.encode.pose"):
+        pose_feats = model.pose_encode(_pose_pairs(batch))
+    return depth_feats, pose_feats
 
 
 @tracing.traced("step.embed")
@@ -567,7 +576,8 @@ def predict_pose_step(model: DepthPoseNet, image_0: torch.Tensor, image_1: torch
 def predict_depth_step(model: DepthPoseNet, image: torch.Tensor, min_depth=0.1,
                        max_depth=None, bf16_networks: bool = False):
     """Depth (B, H, W, 1) of NHWC images (reference `predict_from_image`) and
-    the normalised pooled stage-4 depth-encoder feature (B, 512)."""
+    the normalised pooled stage-4 depth-encoder feature (B, D), D the
+    encoder's last width."""
     with _networks(bf16_networks, image.device):
         disps, feat4 = model.depth_forward(image)
     return disp_to_depth(disps[("disp", 0)], min_depth, max_depth), l2_normalize(feat4)
