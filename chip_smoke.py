@@ -496,7 +496,9 @@ def check_k2(torch, wp, src, coords, g, tag: str) -> dict:
 class PathGuard:
     """While a path runs: a CUDA tensor must never reach a plain version,
     and the last inputs the path gave each kernel wrapper are kept (by
-    reference: the path does not write to them afterwards)."""
+    reference, detached: the path does not write to them afterwards; where
+    it replays a CUDA graph they are the graph's own tensors, which hold
+    the inputs of its last replay)."""
 
     PLAIN = {"wp": ("warp_static_fused_plain", "bilinear_sampler", "warp_tall_plain",
                     "warp_tall_proj_plain", "warp_two_kernel_plain", "warp_grad_plain",
@@ -526,7 +528,12 @@ class PathGuard:
 
         def capture(fn, name):
             def kept(*args):
-                self.captured[name] = args
+                # detached: a tensor a backward hands in keeps the iteration's
+                # autograd graph alive, and the next capture of that
+                # iteration as a CUDA graph would find its gradient
+                # accumulators on the stream they were made on
+                self.captured[name] = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                            for a in args)
                 return fn(*args)
             return kept
 

@@ -122,6 +122,17 @@ def identity_reprojection(
     return maps.reshape((n, B) + target.shape[1:3]).permute(1, 0, 2, 3)
 
 
+def tie_break_noise(rng: torch.Generator, identity_base: torch.Tensor,
+                    num_scales: int) -> torch.Tensor:
+    """The 1e-5 identity tie-break noise (num_scales, 1, F, H, W) for the
+    (B, F, H, W) identity maps: one fresh draw from `rng` per scale,
+    broadcast over the batch."""
+    return 1e-5 * torch.randn(
+        (num_scales, 1) + tuple(identity_base.shape[1:]), generator=rng,
+        dtype=identity_base.dtype, device=identity_base.device,
+    )
+
+
 def total_loss(
     inputs: Dict,
     outputs: Dict,
@@ -137,6 +148,7 @@ def total_loss(
     scale_prior_weight: float = 0.0,
     scale_prior_disp: float = 0.15,
     reproj_maps: Optional[Dict[Tuple[int, int], torch.Tensor]] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Multi-scale loss with the reference `_compute_loss` semantics.
 
@@ -146,9 +158,11 @@ def total_loss(
     sigmoid disparities; ('translation', 0, f) (B, 3) for f in (-1, 1).
 
     `sample_weights` default to 1/B.  `rng` draws the 1e-5 identity
-    tie-break noise, fresh per scale and broadcast over the batch; None
-    turns it off.  `reproj_maps` supplies precomputed (B, H, W) error maps
-    per (frame, scale) in place of the reprojection_loss calls.
+    tie-break noise (`tie_break_noise`), fresh per scale and broadcast over
+    the batch; `noise` hands in a draw made beforehand in its place; with
+    neither there is no noise.  `reproj_maps` supplies precomputed
+    (B, H, W) error maps per (frame, scale) in place of the
+    reprojection_loss calls.
 
     `dynamic_masks` (scale -> (B, Hs, Ws), 1 = dynamic object) turns on the
     mask_dynamic pretraining path: the reprojection term averages over the
@@ -165,12 +179,8 @@ def total_loss(
 
     if identity_base is None:
         identity_base = identity_reprojection(inputs, frame_ids)
-    noise = None
-    if rng is not None:
-        noise = 1e-5 * torch.randn(
-            (len(scales), 1) + tuple(identity_base.shape[1:]), generator=rng,
-            dtype=identity_base.dtype, device=identity_base.device,
-        )
+    if noise is None and rng is not None:
+        noise = tie_break_noise(rng, identity_base, len(scales))
 
     for scale_i, scale in enumerate(scales):
         identity = identity_base if noise is None else identity_base + noise[scale_i]

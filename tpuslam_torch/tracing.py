@@ -18,6 +18,15 @@ so a profiler that runs holds the program's spans on its own clock, beside
 the device's activities.  A counter adds to
 a running sum (`h2d_bytes`, `d2h_bytes`, `launches.<kernel entry>`).
 
+On the card an adapting state replays its iteration as a CUDA graph
+(`train.steps.IterationGraph`): the counters `graph.capture` and
+`graph.replay` count captures and replays, and each replay counts the
+`launches.<entry>` its capture recorded (`tally()`), so those counters
+count every launch on the device, eager or replayed.  A replayed
+iteration's span `step.iter` holds `step.graph` (the replay) and
+`step.adam`; `step.decode`, `step.warp_loss` and `step.backward` fire only
+where an iteration runs eagerly or is being captured.
+
 Every thread records into a buffer of its own, in memory, until `reset()`.
 `snapshot()` sums them up by name; `records()` lists the spans.  A span
 never synchronises the device and never reads a device tensor: it only
@@ -31,7 +40,7 @@ from __future__ import annotations
 import functools
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
@@ -45,6 +54,7 @@ _lock = threading.Lock()
 _buffers: List["_Buffer"] = []
 _generation = 0
 _local = threading.local()
+_tally: Optional[tuple] = None  # the open `tally()`'s (prefix, counts)
 
 
 class Span(NamedTuple):
@@ -122,11 +132,34 @@ def traced(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to the counter `name` when the tracer is on.  Where working
-    out `n` costs something, guard the call with `if tracing.on:`."""
-    if on:
+    """Add `n` to the counter `name` when the tracer is on, or to the open
+    `tally()`'s counts where it takes `name`.  Where working out `n` costs
+    something, guard the call with `if tracing.on:`."""
+    if _tally is not None and name.startswith(_tally[0]):
+        with _lock:
+            _tally[1][name] = _tally[1].get(name, 0) + n
+    elif on:
         counters = _buffer().counters
         counters[name] = counters.get(name, 0) + n
+
+
+@contextmanager
+def tally(prefix: str):
+    """`with tally(prefix) as counts:` gathers into the dict `counts`, in
+    place of the counters, what any thread counts under a name that starts
+    with `prefix` while the block runs, with the tracer on or off: the
+    launches a CUDA graph's capture records (some on autograd's thread),
+    which run on the device only when it is replayed.  One block at a
+    time."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("tracing.tally() is already open")
+    counts: Dict[str, int] = {}
+    _tally = (prefix, counts)
+    try:
+        yield counts
+    finally:
+        _tally = None
 
 
 def enable() -> None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -25,6 +25,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     rng: Optional[torch.Generator]  # identity tie-break noise; None turns it off
     step: int = 0
+    # the CUDA graph of one adaptation iteration over this state's decoders
+    # (`train.steps.IterationGraph`), and the key of the last adaptation
+    graph: Any = None
+    graph_key: Any = None
 
 
 def steplr(base_lr: float, step_size: int, gamma: float = 0.1) -> Callable[[int], float]:
@@ -110,7 +114,8 @@ def clone_train_state(state: TrainState) -> TrainState:
     """A copy of `state` that can be updated without touching it: the
     decoders, the Adam state and the tie-break generator are copied (the
     clone's optimizer holds the clone's parameters).  The frozen encoders
-    are shared with `state`, because nothing writes them."""
+    are shared with `state`, because nothing writes them.  The clone has no
+    CUDA graph and has not adapted yet."""
     src = state.model
     memo = {id(src.depth_encoder): src.depth_encoder, id(src.pose_encoder): src.pose_encoder}
     model, optimizer = copy.deepcopy((src, state.optimizer), memo)

@@ -9,6 +9,13 @@ Counterpart of `tpuslam/train/steps.py`.  One SLAM frame (`adapt_step`):
    decoders (`_adapt_scan`, a Python loop);
 3. everything the host reads back is packed into one vector (`_pack_retire`).
 
+On the card the iteration's forward and backward (2. less Adam) are one
+CUDA graph (`IterationGraph`), replayed K times a frame once a state has
+adapted twice with the same key (`_graph_key`), and Adam steps eagerly on
+the gradients each replay leaves.  The tie-break noise is drawn eagerly
+from `state.rng` before each iteration, so the generator's stream is the
+same on either path.
+
 The losses and outputs returned are the last iteration's, computed before
 its optimizer step, as in the reference's adapt().  Networks run under bf16
 autocast when the config's dtype is bfloat16; geometry, the warp and the
@@ -24,13 +31,16 @@ With the tracer on (`tpuslam_torch.tracing`) each step is a span
 phases: `step.frozen` or `step.encode`, each holding `step.encode.depth`
 and `step.encode.pose` (the two encoders), then per iteration `step.iter`
 with `step.decode`, `step.warp_loss`, `step.backward`, `step.adam`, and
-`step.embed`, `step.pack`.
+`step.embed`, `step.pack`.  An iteration that replays the graph holds
+`step.graph` (the replay) and `step.adam` instead: `step.decode`,
+`step.warp_loss` and `step.backward` fire when an iteration runs eagerly or
+is captured.  Counters: `graph.capture`, `graph.replay`.
 """
 from __future__ import annotations
 
 import dataclasses
 from contextlib import contextmanager, nullcontext
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,7 +55,7 @@ from tpuslam_torch.geometry.camera import (
 )
 from tpuslam_torch.geometry.depth import depth_to_disp, disp_to_depth
 from tpuslam_torch.geometry.se3 import transformation_from_parameters
-from tpuslam_torch.losses.photometric import identity_reprojection, total_loss
+from tpuslam_torch.losses.photometric import identity_reprojection, tie_break_noise, total_loss
 from tpuslam_torch.models.depth_pose import DepthPoseNet, l2_normalize
 from tpuslam_torch.ops.reproj import reproj_err, warp_reproj_err, warp_reproj_err_proj
 from tpuslam_torch.ops.warp import warp, warp_tall, warp_tall_proj, warp_two_kernel
@@ -133,10 +143,12 @@ def loss_config(pc) -> LossConfig:
 
 
 def _networks(bf16: bool, device: torch.device):
-    """Autocast context for the networks (bf16 convs), a no-op for float32."""
+    """Autocast context for the networks (bf16 convs), a no-op for float32.
+    Its cache of cast weights is off, as a CUDA graph's capture needs: each
+    weight is used once in a block, so the cache saves no cast."""
     if not bf16:
         return nullcontext()
-    return torch.autocast(device.type, dtype=torch.bfloat16)
+    return torch.autocast(device.type, dtype=torch.bfloat16, cache_enabled=False)
 
 
 def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -171,6 +183,7 @@ def warp_and_loss(
     cfg: LossConfig,
     *,
     rng: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
     identity_base: Optional[torch.Tensor] = None,
     pyramid: Optional[Dict[int, torch.Tensor]] = None,
 ):
@@ -302,6 +315,7 @@ def warp_and_loss(
         velocity_loss_scaling=cfg.velocity_loss_scaling,
         sample_weights=batch.weights,
         rng=rng,
+        noise=noise,
         dynamic_masks=dynamic_masks,
         identity_base=identity_base,
         reproj_maps=reproj_maps,
@@ -382,44 +396,196 @@ def embed(model: DepthPoseNet, image: torch.Tensor, cfg: LossConfig) -> torch.Te
     return l2_normalize(feat.mean((2, 3)))
 
 
+class IterInputs(NamedTuple):
+    """What one adaptation iteration reads besides the decoders: the
+    training batch and what the frame computes once, outside the loop."""
+
+    batch: FrameBatch
+    depth_feats: Tuple[torch.Tensor, ...]  # the frozen depth encoder's pyramid
+    pose_feat: torch.Tensor  # the frozen pose encoder's last feature
+    identity_base: torch.Tensor  # identity reprojection maps (B, 2, H, W)
+    pyramid: Dict[int, torch.Tensor]  # target image pyramid by scale
+
+    def tensors(self) -> List[torch.Tensor]:
+        fields = [getattr(self.batch, f.name) for f in dataclasses.fields(self.batch)]
+        return ([t for t in fields if t is not None] + list(self.depth_feats)
+                + [self.pose_feat, self.identity_base]
+                + [self.pyramid[s] for s in sorted(self.pyramid)])
+
+    def clone(self) -> "IterInputs":
+        batch = dataclasses.replace(self.batch, **{
+            f.name: getattr(self.batch, f.name).clone() for f in dataclasses.fields(self.batch)
+            if getattr(self.batch, f.name) is not None})
+        return IterInputs(batch, tuple(t.clone() for t in self.depth_feats),
+                          self.pose_feat.clone(), self.identity_base.clone(),
+                          {s: t.clone() for s, t in self.pyramid.items()})
+
+
+def frame_inputs(model: DepthPoseNet, cfg: LossConfig, training: FrameBatch) -> IterInputs:
+    """What the frame computes once for its iterations: the frozen
+    encoders' features, the identity reprojection maps and the target
+    pyramid, outside autograd."""
+    depth_feats, pose_feat = _frozen_features(model, training, cfg)
+    with torch.no_grad():
+        identity_base = identity_reprojection({
+            ("rgb", 0, 0): training.frame(0),
+            ("rgb", -1, 0): training.frame(-1),
+            ("rgb", 1, 0): training.frame(1),
+        })
+        pyramid = _image_pyramid(training.frame(0), len(cfg.scales))
+    return IterInputs(training, tuple(depth_feats), pose_feat, identity_base, pyramid)
+
+
+def adapt_iteration(model: DepthPoseNet, cfg: LossConfig, inputs: IterInputs,
+                    noise: Optional[torch.Tensor]):
+    """One iteration's forward and backward: decoders -> warp and loss ->
+    gradients into the decoders' `.grad`.  Returns (losses, outputs)."""
+    losses, outputs = _decode_and_loss(
+        model, inputs.batch, cfg, inputs.depth_feats, inputs.pose_feat, noise=noise,
+        identity_base=inputs.identity_base, pyramid=inputs.pyramid)
+    with tracing.span("step.backward"):
+        losses["loss"].backward()
+    return losses, outputs
+
+
+def _graphable(device: torch.device) -> bool:
+    """Whether adaptation on `device` may run as a CUDA graph."""
+    return device.type == "cuda"
+
+
+def _graph_key(state: TrainState, cfg: LossConfig, batch: FrameBatch) -> tuple:
+    """What an iteration's graph depends on: the batch's shapes and dtypes,
+    the loss configuration, the autocast state around the step, whether
+    there is tie-break noise, and where the decoders' parameters live."""
+    device = batch.rgb.device.type
+    fields = [getattr(batch, f.name) for f in dataclasses.fields(batch)]
+    decoders = (state.model.depth_decoder, state.model.pose_decoder)
+    return (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in fields), cfg,
+            torch.is_autocast_enabled(device), torch.get_autocast_dtype(device),
+            state.rng is not None,
+            tuple(p.data_ptr() for m in decoders for p in m.parameters()))
+
+
+class IterationGraph:
+    """One adaptation iteration -- decoders, warp and loss, backward -- as a
+    CUDA graph over static copies of its inputs (`IterInputs`, the noise).
+
+    Built at the iteration it captures: the optimizer's gradients are set
+    to None first, so the captured backward writes fresh gradients from the
+    graph's pool and every replay overwrites them in place; the optimizer
+    then steps eagerly on them.  `losses` and `outputs` are the graph's own
+    tensors, which the next replay overwrites.  The launches recorded while
+    capturing (`launches.<entry>`) are counted at every replay instead.
+
+    A capture needs the autograd graphs of the state's earlier, eager
+    iterations freed: a tensor of one that is still held keeps the
+    parameters' gradient accumulators on the stream they were made on,
+    which the capture's stream cannot wait for."""
+
+    def __init__(self, key: tuple, state: TrainState, cfg: LossConfig, inputs: IterInputs,
+                 noise: Optional[torch.Tensor]):
+        self.key = key
+        self.inputs = inputs.clone()
+        self.noise = None if noise is None else noise.clone()
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        with tracing.tally("launches.") as self.launches:
+            losses, outputs = self._record(
+                lambda: adapt_iteration(state.model, cfg, self.inputs, self.noise))
+        self.losses = {k: v.detach() for k, v in losses.items()}
+        self.outputs = {k: v.detach() for k, v in outputs.items()}
+        self.grads = [(p, p.grad) for group in opt.param_groups for p in group["params"]]
+        tracing.count("graph.capture")
+
+    def _record(self, fn):
+        """Capture `fn` (nothing runs on the device); returns its outputs."""
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            return fn()
+
+    def _replay(self) -> None:
+        self.graph.replay()
+
+    def holds_gradients(self) -> bool:
+        """Whether the optimizer's parameters still hold the graph's
+        gradients (nobody has set them to None since the capture)."""
+        return all(p.grad is g for p, g in self.grads)
+
+    def load(self, inputs: IterInputs) -> None:
+        """Copy a frame's inputs into the static ones."""
+        torch._foreach_copy_(self.inputs.tensors(), inputs.tensors())
+
+    def run(self, noise: Optional[torch.Tensor]):
+        """Replay with `noise`; returns the graph's (losses, outputs)."""
+        if noise is not None:
+            self.noise.copy_(noise)
+        with tracing.span("step.graph"):
+            self._replay()
+        if tracing.on:
+            tracing.count("graph.replay")
+            for k, n in self.launches.items():
+                tracing.count(k, n)
+        return self.losses, self.outputs
+
+
+def _frame_graph(state: TrainState, cfg: LossConfig, batch: FrameBatch):
+    """(graph to replay, key to capture under): (None, None) runs the frame
+    eagerly.  A graph is used on the card only, from a state's second
+    adaptation with the same key as its last; a changed key drops the
+    graph, and the next adaptation with that key captures anew."""
+    if not _graphable(batch.rgb.device):
+        return None, None
+    key = _graph_key(state, cfg, batch)
+    last, state.graph_key = state.graph_key, key
+    graph = state.graph
+    if graph is not None and graph.key == key and graph.holds_gradients():
+        return graph, None
+    state.graph = None
+    return None, key if key == last else None
+
+
 def _adapt_scan(state: TrainState, cfg: LossConfig, training: FrameBatch, num_steps: int,
                 with_outputs: bool = True):
     """K iterations of decode -> warp and loss -> backward -> Adam.
 
     Returns (last losses, last outputs without the warped images, per-
     iteration losses (K,), pooled stage-4 feature of the frozen encoder);
-    with `with_outputs=False` the losses and outputs are empty dicts."""
+    with `with_outputs=False` the losses and outputs are empty dicts.  What
+    it returns is fresh, never a graph's own tensor."""
     if num_steps < 1:
         raise ValueError(f"adaptation requires num_steps >= 1, got {num_steps}")
     model, opt = state.model, state.optimizer
     with tracing.span("step.frozen"):
-        depth_feats, pose_feat = _frozen_features(model, training, cfg)
-        feat4 = depth_feats[-1].mean((2, 3))
-        with torch.no_grad():
-            identity_base = identity_reprojection({
-                ("rgb", 0, 0): training.frame(0),
-                ("rgb", -1, 0): training.frame(-1),
-                ("rgb", 1, 0): training.frame(1),
-            })
-            pyramid = _image_pyramid(training.frame(0), len(cfg.scales))
+        inputs = frame_inputs(model, cfg, training)
+        feat4 = inputs.depth_feats[-1].mean((2, 3))
+    graph, capture_key = _frame_graph(state, cfg, training)
+    if graph is not None:
+        graph.load(inputs)
 
     iter_losses = []
     for _ in range(num_steps):
         with tracing.span("step.iter"):
-            losses, outputs = _decode_and_loss(
-                model, training, cfg, depth_feats, pose_feat, rng=state.rng,
-                identity_base=identity_base, pyramid=pyramid,
-            )
-            with tracing.span("step.backward"):
+            noise = None
+            if state.rng is not None:
+                noise = tie_break_noise(state.rng, inputs.identity_base, len(cfg.scales))
+            if capture_key is not None:
+                graph = state.graph = IterationGraph(capture_key, state, cfg, inputs, noise)
+                capture_key = None
+            if graph is not None:
+                losses, outputs = graph.run(noise)
+                iter_losses.append(losses["loss"].clone())
+            else:
                 opt.zero_grad(set_to_none=True)
-                losses["loss"].backward()
+                losses, outputs = adapt_iteration(model, cfg, inputs, noise)
+                iter_losses.append(losses["loss"].detach())
             with tracing.span("step.adam"):
                 opt.step()
-            iter_losses.append(losses["loss"].detach())
     if not with_outputs:
         return {}, {}, torch.stack(iter_losses), feat4
-    losses = {k: v.detach() for k, v in losses.items()}
-    outputs = {k: v.detach() for k, v in outputs.items() if k[0] != "rgb"}
+    # a graph's tensors are detached already, and the next replay writes them
+    keep = torch.Tensor.clone if graph is not None else torch.Tensor.detach
+    losses = {k: keep(v) for k, v in losses.items()}
+    outputs = {k: keep(v) for k, v in outputs.items() if k[0] != "rgb"}
     return losses, outputs, torch.stack(iter_losses), feat4
 
 
@@ -498,7 +664,8 @@ def consolidate_step_async(state: TrainState, cfg: LossConfig, batch: FrameBatch
     to another stream while the update reads it.  Returns (clone, event recorded on `stream` after the
     update's last operation); the caller makes its stream wait on the event
     before it reads the clone.  Without a stream (the CPU) the update runs
-    synchronously and the event is None."""
+    synchronously and the event is None.  The clone adapts once, so it
+    runs eagerly, never as a CUDA graph."""
     if stream is None:
         clone = clone_train_state(state)
         consolidate_step(clone, cfg, batch, num_steps, freeze_encoder)
