@@ -13,38 +13,33 @@ Phases, each printing lines tagged with its name and raising on failure
 3. main: eight frames of `Slam.step` with online adaptation on the
    synthetic world at 192 x 640, ResNet-18 depth and pose, batch 3, K = 5,
    the shipped `pallas_*` defaults: K1 runs with taps on N = 2*S*B = 24
-   images;
-4. profile: three more frames under torch.profiler give the host / device
-   split of a frame; then cli adapt: `Slam.save_model` of that Slam, and
+   images; then cli adapt: `Slam.save_model` of that Slam, and
    `tpuslam_torch.cli.adapt` on a YAML with `adapt_kitti.yaml`'s settings
    (`Dataset: Synthetic`, 12 frames, `load_weights_folder` that checkpoint,
    `plot_frequency` at its default): the reload bit for bit, the CLI's
    output files and 5 K1a launches per frame;
-5. eval: two frames with `adaptation: false` (batch 1): K1 without taps on
+4. eval: two frames with `adaptation: false` (batch 1): K1 without taps on
    N = 2*S = 8 images;
-6. two-kernel main: eight adapted frames with `pallas_fused_grad: false`:
+5. two-kernel main: eight adapted frames with `pallas_fused_grad: false`:
    per frame 5 launches each of K2's forward and backward kernels with
-   exact taps, and no K1 launch; two-kernel profile: three more frames
-   under torch.profiler, beside the numbers of phase 4;
-7. two-kernel eval: two frames of it with `adaptation: false`: one K2
+   exact taps, and no K1 launch;
+6. two-kernel eval: two frames of it with `adaptation: false`: one K2
    forward (f32) per frame;
-8. packed main and seg-skip main: four and two adapted frames with
+7. packed main and seg-skip main: four and two adapted frames with
    `pallas_packed` and `pallas_seg_skip`: the same two kernels with
    bf16-truncated taps, 5 launches each per frame;
-9. predictor: `DepthPosePrediction` (float32 networks, the two-kernel
+8. predictor: `DepthPosePrediction` (float32 networks, the two-kernel
    warp): `predict_from_images(return_loss=True)` on the card against the
    same call on the CPU, then one adapt of K = 5, with its launches;
-10. fused main: the same adaptation with the fused stack (`pallas_tall`,
-    `pallas_proj`, `pallas_fused_loss`, `pallas_fused_bwd`): per adapted
-    frame 5 launches each of K5 with taps, K6 and K7/K8, and no other
-    kernel of the port;
-11. fused profile: three more frames of it under torch.profiler, beside
-    the numbers of phase 4;
-12. fused eval: two frames of the fused stack with `adaptation: false`: K5
+9. fused main: the same adaptation with the fused stack (`pallas_tall`,
+   `pallas_proj`, `pallas_fused_loss`, `pallas_fused_bwd`): per adapted
+   frame 5 launches each of K5 with taps, K6 and K7/K8, and no other
+   kernel of the port;
+10. fused eval: two frames of the fused stack with `adaptation: false`: K5
     without taps and K6 once per frame each;
-13. fused loss: four adapted frames with `pallas_tall` + `pallas_fused_loss`:
+11. fused loss: four adapted frames with `pallas_tall` + `pallas_fused_loss`:
     5 launches per frame each of K4 with taps, K6 and K6';
-14. lc main: `Slam.run` over 40 frames of the synthetic loop at the
+12. lc main: `Slam.run` over 40 frames of the synthetic loop at the
     operating point of `adapt_kitti.yaml`: adaptation on the K1 path, loop
     closure on the depth-encoder embedding, `pipeline_depth: 3`, a prefetch
     of 3 frames (`id_threshold` and `detection_threshold` lowered so that a
@@ -53,44 +48,41 @@ Phases, each printing lines tagged with its name and raising on failure
     as it stood before that solve, and a 1,000-vertex chain, solved by the
     float64 LM on the card and on the CPU and by the C++ solver, which must
     agree;
-15. lc mobilenet: the same `Slam.run` over 30 frames of the loop with
+13. lc mobilenet: the same `Slam.run` over 30 frames of the loop with
     loop closure on the MobileNetV3-small embedder (`embedder: mobilenet`,
     random weights): 5 K1a launches and one embedder forward per frame, at
-    least one loop edge, its steady ms/frame beside lc main's and the
-    embedder's own (CUDA events), and the card's embeddings of 4 frames
-    against the CPU port's;
-16. rungs: `tpuslam_torch.cli.rungs` at 192 x 640, 16 frames, all five
+    least one loop edge, and the card's embeddings of 4 frames against the
+    CPU port's;
+14. rungs: `tpuslam_torch.cli.rungs` at 192 x 640, 16 frames, all five
     rungs and rung 5's sync ablation, with the launches read around each
     rung (K1b once a frame in rung 1 and in the async rung 5, whose updates
     launch K1a 3 times each on a second CUDA stream; K1a 3 times a frame
-    elsewhere, plus once per generalist consolidation in rung 3), the
-    async rung's launched / adopted updates and each rung's steady
-    ms/frame;
-17. async check: the CoVIO update on the side stream against the same
+    elsewhere, plus once per generalist consolidation in rung 3) and the
+    async rung's launched / adopted updates;
+15. async check: the CoVIO update on the side stream against the same
     update on the current stream (K = 1: 1e-5 relative; K = 5 logged beside
     two runs on one stream), the serving state unchanged bit for bit, and a
     serving `eval_step` issued before the update's event is waited on equal
     to one issued after it;
-18. pretrain: `Pretrainer` at 192 x 640, ResNet-18, batch 18, on the K1a
+16. pretrain: `Pretrainer` at 192 x 640, ResNet-18, batch 18, on the K1a
     route (`pallas_warp=True`) and on the plain sampler: an epoch of 5
     `train_step`s (the whole network, batch norm in train mode) and a
     `validate` over 2 batches (5 K1a launches on N = 2*S*B = 144 images and
-    2 K1b; none on the plain route), then the steady ms/step of 5 more
-    steps, 3 steps under torch.profiler and the peak memory of each route;
-19. cli pretrain: `tpuslam_torch.cli.pretrain` on
+    2 K1b; none on the plain route), with the peak memory of each route;
+17. cli pretrain: `tpuslam_torch.cli.pretrain` on
     `pretrain_collapse_synthetic_192.yaml` for 2 epochs (12 of its 64
     frames), with no kernel launch (it runs the plain sampler), its
     `weights_*` folders and models/best.yaml, then one more epoch resumed
     through `Pretrainer.load`;
-20. ddp: a data-parallel pretraining step (`tpuslam_torch.parallel`, sync-BN)
+18. ddp: a data-parallel pretraining step (`tpuslam_torch.parallel`, sync-BN)
     at 192 x 640, batch 18, world size 1 over NCCL and 2 ranks over gloo on
     the one card, each held against the single-process `train_step` on the
-    whole batch, with their ms/step;
-21. profiling: `profile_adapt_step` (K = 1, 5, 10) and `calibrate` at
+    whole batch;
+19. profiling: `profile_adapt_step` (K = 1, 5, 10) and `calibrate` at
     192 x 640, batch 3 (no class may read faster than 95% of its speed of
     light on the H100), `frame_sol_ms`, and a Chrome trace of one
     `adapt_step` through `utils.profiling.trace`;
-22. kernels: every kernel (K1 with and without taps, K2's forward and
+20. kernels: every kernel (K1 with and without taps, K2's forward and
     backward with exact and truncated taps, K3 and K3', K4, K5 with and
     without taps, K6, K6', K7/K8) held against its plain torch version on
     adversarial inputs and on the inputs the paths gave it (the error-map
@@ -105,14 +97,18 @@ Phases, each printing lines tagged with its name and raising on failure
     with exact taps, `warp_dynamic`: no path calls them, and their rows
     carry K2's numbers); K1a and K1b also on the pretrain path's inputs,
     each a row of its own;
-23. reference: one adaptation step on the card and on the CPU at a small
+21. reference: one adaptation step on the card and on the CPU at a small
     size, with the K1 path, the fused stack, the two-kernel path and the
     packed variant (and the K1 path again at their size), and one
     `train_step` on the K1a route and on the plain one, which must agree.
 
 During every path each plain version refuses CUDA tensors, and the
 kernels' launch counts are set to 0 just before the path and read just
-after it.
+after it.  The script checks; it does not time frames or steps: the
+benchmark (`portbench/run.py`) measures the frame and the pretraining
+step, `utils.profiling.trace` with `by_span` breaks a frame's device and
+idle time down, and `python -m tpuslam_torch.cli.rungs` prints each
+rung's frames/s.
 
 The last three lines are the kernels as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -122,15 +118,12 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 H, W, C = 192, 640, 3
 S = 4  # scales
 N_MAIN = 24  # images per warp in adapt_step: 2 directions x 4 scales x batch 3
@@ -146,34 +139,25 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def time_ms(fn, iters: int = 50) -> float:
+def back_to_back_ms(fn) -> float:
+    """ms a call of `fn` over 50 launches back to back (CUDA events, host
+    time included), after 3 warm-up calls."""
     import torch
+
+    from tpuslam_torch.utils.profiling import device_ms as events_ms
 
     for _ in range(3):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return events_ms(fn, 50, torch.device("cuda"))
 
 
 def bound_ms(inputs, outputs, flops: float):
     """Least time for the work: bytes moved once over HBM, or operations
     over the float32 peak, whichever is larger."""
+    from tpuslam_torch.utils.calibration import PEAK_FLOPS_F32, PEAK_HBM_BYTES
+
     nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_FLOPS_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -205,7 +189,9 @@ def device_ms(torch, fn, match: str, iters: int = 20) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
+    from tpuslam_torch.tools.ab_common import flush_buffer
+
+    flush = flush_buffer("cuda")
     fn()
     torch.cuda.synchronize()
     # the trace may miss the first launches after it starts (up to 11 of
@@ -599,10 +585,7 @@ def smoke_config(log_dir: Path, adaptation: bool, height=H, width=W, **pc):
 def run_adapt_path(torch, wp, rp, phase, log_dir, captured, card, steps, want, **pc):
     """`steps` frames of `Slam.step` with adaptation; checks losses, the pose
     graph and the launches (`want`: kernel -> launches per adapted frame).
-    Returns the launches, the Slam and the mean time of frames 3 on (frames
-    1-2 hold cuDNN autotuning and warm-up), None for runs of 2 frames."""
-    import numpy as np
-
+    Returns the launches and the Slam."""
     from tpuslam_torch.slam import Slam
 
     torch.cuda.reset_peak_memory_stats()
@@ -614,22 +597,19 @@ def run_adapt_path(torch, wp, rp, phase, log_dir, captured, card, steps, want, *
         for _ in range(steps):
             losses.append(slam.step())
     launches = read_launches()
-    adapted = len(slam.step_times)
+    adapted = len(slam.depth_loss)  # frames retired with losses
     bad = [l for l in losses if not all(math.isfinite(v) for v in l.values())]
     if bad or adapted == 0:
         raise AssertionError(f"{phase}: non-finite losses {bad} or no adapted frame")
     if slam.pose_graph.vertex_ids != list(range(adapted + 1)):
         raise AssertionError(f"{phase}: pose graph vertices {slam.pose_graph.vertex_ids}")
     expect_launches(phase, launches, {k: v * adapted for k, v in want.items()})
-    ms = 1e3 * float(np.mean(slam.step_times[2:])) if adapted > 2 else None
-    steady = (f"steady {ms:.2f} ms/frame = {1e3 / ms:.2f} frames/s (frames 3-{adapted})"
-              if ms is not None else "no steady time (warm-up frames only)")
     log(phase, f"{adapted} frames adapted, loss {losses[-1]['loss']:.5f}, launches "
         f"{ {k: v for k, v in launches.items() if v} }, replay buffer "
-        f"{len(slam.replay_buffer)}, {steady}, peak memory "
+        f"{len(slam.replay_buffer)}, peak memory "
         f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above the "
         f"{held / 2**30:.2f} GiB held before the path [{card}]")
-    return launches, slam, ms
+    return launches, slam
 
 
 def run_eval_path(torch, wp, rp, phase, log_dir, captured, want, **pc):
@@ -794,7 +774,7 @@ def check_solves(solves: dict, tag: str, strict: bool) -> None:
     log("lc main", f"{tag}: solves agree: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
 
 
-def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms) -> float:
+def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> None:
     """`Slam.run` over the synthetic loop at the operating point of
     `adapt_kitti.yaml`: adaptation (batch 3, K = 5, the shipped `pallas_*`
     defaults, bf16 networks), loop closure on the depth-encoder embedding
@@ -806,8 +786,7 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
     least one loop edge solved by the C++ solver, 5 K1a launches per
     adapted frame and no other kernel, and an empty retire queue; then
     solves the graph as it stood before its first solve, and a 1,000-vertex
-    chain, on the card, on the CPU and in C++, and holds them together.
-    Returns the steady ms/frame."""
+    chain, on the card, on the CPU and in C++, and holds them together."""
     import copy
     import math
 
@@ -852,12 +831,10 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
     slam.loop_closure_detection.search = logged_search
     slam.pose_graph.optimize = kept_optimize
     reset_launches()
-    t0 = time.perf_counter()
     with PathGuard(wp, rp, captured):
         slam.run(max_steps=LC_FRAMES, progress=False, prefetch_depth=3)
-    run_s = time.perf_counter() - t0
     launches = read_launches()
-    adapted = len(slam.step_times)
+    adapted = len(slam.depth_loss)
     if slam._retire_queue or adapted != LC_FRAMES:
         raise AssertionError(f"lc main: {len(slam._retire_queue)} frames left in the retire "
                              f"queue, {adapted} of {LC_FRAMES} frames adapted")
@@ -873,7 +850,6 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
     before = snapshots[0]
     if any(backend != "native" or kw.get("backend") != "auto" for kw, backend, _, _ in runs):
         raise AssertionError(f"lc main: solves {runs}")
-    ms = 1e3 * float(np.mean(slam.step_times[2:]))
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     for frame_id, ids, sims in searches:
         log("lc main", f"search at frame {frame_id}: candidates "
@@ -890,10 +866,8 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
         f"{slam.pose_graph.num_loop_closures} loop edge(s), solves "
         + ", ".join(f"{b} {1e3 * t:.1f} ms (error {e:.6g})" for _, b, e, t in runs)
         + f"; ATE of the {len(before)} vertices before the first solve {ate_before:.4f} m; "
-        f"final report {ate_line}; steady {ms:.2f} ms/frame = {1e3 / ms:.2f} frames/s "
-        f"(frames 3-{adapted}; the K1 path's Slam.step loop: {k1_ms:.2f} ms/frame), run "
-        f"{run_s:.2f} s; peak memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB held "
-        f"before the path [{card}]")
+        f"final report {ate_line}; peak memory {peak:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before the path [{card}]")
 
     check_solves(solve_three_ways(before, gt[:len(before)], f"the path's graph before its "
                                   f"first solve ({len(before)} vertices, "
@@ -902,13 +876,12 @@ def phase_lc_main(torch, wp, rp, log_dir: Path, captured: dict, card: str, k1_ms
     chain, chain_gt = chain_graph(1000, 42, [(0, 999), (100, 900), (250, 750)])
     check_solves(solve_three_ways(chain, chain_gt, "a 1,000-vertex chain (3 loop edges)", card, 1),
                  "the 1,000-vertex chain", strict=False)
-    return ms
 
 
 LC_MOBILENET_FRAMES = 30  # the synthetic loop cut to 30 frames: one search (frame 25) past id_threshold
 
 
-def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) -> None:
+def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str) -> None:
     """`Slam.run` as in "lc main" (adaptation on the K1 path, `pipeline_depth:
     3`, a prefetch of 3 frames, `id_threshold` 20, `detection_threshold`
     0.5), with loop closure on the MobileNetV3-small embedder (`embedder:
@@ -916,9 +889,8 @@ def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) ->
     weights) over 30 frames of the synthetic loop.  Checks the losses, one
     vertex per frame, at least one loop edge, 5 K1a launches per frame and
     no other kernel, one embedder forward per frame; logs the searches and
-    edges, the steady ms/frame beside "lc main"'s and the embedder's own
-    ms/frame (CUDA events around each call); then holds the card's
-    embeddings of 4 frames against the CPU port's within 1e-4 relative."""
+    edges; then holds the card's embeddings of 4 frames against the CPU
+    port's within 1e-4 relative."""
     import copy
 
     import numpy as np
@@ -933,16 +905,13 @@ def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) ->
     cfg.loop_closure.id_threshold, cfg.loop_closure.detection_threshold = 20, 0.5
     slam = Slam(cfg, device="cuda")
     embedder = slam._mobilenet
-    spans, searches = [], []
+    searches, calls = [], 0
     embed = embedder.embed
 
-    def timed_embed(images):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        out = embed(images)
-        end.record()
-        spans.append((start, end))
-        return out
+    def counted_embed(images):
+        nonlocal calls
+        calls += 1
+        return embed(images)
 
     search = slam.loop_closure_detection.search
 
@@ -954,23 +923,22 @@ def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) ->
         searches.append((frame_id, ids[0][ok], sims[0][ok]))
         return search(frame_id)
 
-    embedder.embed = timed_embed
+    embedder.embed = counted_embed
     slam.loop_closure_detection.search = logged_search
     reset_launches()
     with PathGuard(wp, rp, {}):
         slam.run(max_steps=LC_MOBILENET_FRAMES, progress=False, prefetch_depth=3)
     launches = read_launches()
     del embedder.embed  # the class's method again
-    torch.cuda.synchronize()
-    adapted = len(slam.step_times)
+    adapted = len(slam.depth_loss)
     losses = slam.depth_loss + slam.velocity_loss
     if slam._retire_queue or adapted != LC_MOBILENET_FRAMES or not all(
             math.isfinite(v) for v in losses):
         raise AssertionError(f"lc mobilenet: {adapted} frames adapted, queue "
                              f"{len(slam._retire_queue)}, losses {losses}")
-    if slam.pose_graph.vertex_ids != list(range(adapted + 1)) or len(spans) != adapted:
+    if slam.pose_graph.vertex_ids != list(range(adapted + 1)) or calls != adapted:
         raise AssertionError(f"lc mobilenet: vertices {slam.pose_graph.vertex_ids}, "
-                             f"{len(spans)} embedder calls")
+                             f"{calls} embedder calls")
     expect_launches("lc mobilenet", launches, {"warp_static_fused": 5 * adapted})
     if slam.pose_graph.num_loop_closures < 1:
         raise AssertionError(f"lc mobilenet: no loop edge; searches {searches}")
@@ -981,13 +949,10 @@ def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) ->
     for d in slam.lc_edge_diagnostics:
         log("lc mobilenet", f"loop edge {d['step']} -> {d['lc_id']}: sim {d['sim']:.6f}, "
             f"predicted distance {d['pred_dist']:.3f} m, ground truth {d['gt_dist']:.3f} m")
-    ms = 1e3 * float(np.mean(slam.step_times[2:]))
-    embed_ms = float(np.mean([s.elapsed_time(e) for s, e in spans[2:]]))
     log("lc mobilenet", f"{adapted} frames adapted in Slam.run, launches "
-        f"{ {k: v for k, v in launches.items() if v} }, {slam.pose_graph.num_loop_closures} "
-        f"loop edge(s), index of {slam.loop_closure_detection.index.ntotal} 576-d embeddings; "
-        f"steady {ms:.2f} ms/frame (frames 3-{adapted}) beside lc main's {lc_ms:.2f}; the "
-        f"embedder {embed_ms:.3f} ms/frame between CUDA events (frames 3-{adapted}) [{card}]")
+        f"{ {k: v for k, v in launches.items() if v} }, {calls} embedder forwards, "
+        f"{slam.pose_graph.num_loop_closures} loop edge(s), index of "
+        f"{slam.loop_closure_detection.index.ntotal} 576-d embeddings [{card}]")
 
     images = np.stack([slam.dataset[i].rgb[2] for i in (0, 7, 14, 21)])
     got = embedder.embed(torch.from_numpy(images).cuda()).cpu()
@@ -999,7 +964,6 @@ def phase_lc_mobilenet(torch, wp, rp, log_dir: Path, card: str, lc_ms: float) ->
         + ", ".join(f"{e:.3g}" for e in errs) + " (limit 1e-4)")
 
 
-DDP_STEPS = 3  # timed data-parallel steps after the one compared
 # Relative distance from the float64 `train_step` allowed to each float32
 # step of phase "ddp" (gradients network by network, as one vector each).
 # Sound steps read (NVIDIA H100 80GB HBM3, 700 W): losses <= 1.33e-6, BN
@@ -1025,10 +989,9 @@ def ddp_model(torch, dtype=None):
     return model if dtype is None else model.to(dtype)
 
 
-def ddp_snapshot(torch, state, losses, step_fn, steps=DDP_STEPS):
+def ddp_snapshot(torch, state, losses):
     """One step's losses, each network's gradient as one vector and the BN
-    running statistics as one, then `steps` more steps timed (host clock,
-    ended by a synchronize)."""
+    running statistics as one."""
     import numpy as np
 
     model = state.model
@@ -1040,16 +1003,10 @@ def ddp_snapshot(torch, state, losses, step_fn, steps=DDP_STEPS):
     out["losses"] = np.array([float(losses[k]) for k in sorted(losses)])
     out["stats"] = np.concatenate([v.double().cpu().numpy().ravel()
                                    for k, v in model.state_dict().items() if "running" in k])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step_fn()
-    torch.cuda.synchronize()
-    out["ms"] = np.array(1e3 * (time.perf_counter() - t0) / max(steps, 1))
     return out
 
 
-def ddp_run(torch, rank: int, world: int, tmp: Path, steps=DDP_STEPS):
+def ddp_run(torch, rank: int, world: int, tmp: Path):
     """This rank's data-parallel step on its slice of the phase's batch."""
     import numpy as np
 
@@ -1062,8 +1019,7 @@ def ddp_run(torch, rank: int, world: int, tmp: Path, steps=DDP_STEPS):
     model = ddp_model(torch)
     state = make_train_state(model, make_pretrain_optimizer(model, 1e-4), seed=None)
     step = make_dp_train_step(model, ddp_config())
-    losses = step(state, shard)
-    return ddp_snapshot(torch, state, losses, lambda: step(state, shard), steps)
+    return ddp_snapshot(torch, state, step(state, shard))
 
 
 def ddp_gloo_rank(rank: int, init_method: str, tmp: str) -> None:
@@ -1083,7 +1039,7 @@ def ddp_gloo_rank(rank: int, init_method: str, tmp: str) -> None:
     try:
         out = ddp_run(torch, rank, 2, Path(tmp))
         mesh.sync_batch_norm = lambda model, group: contextlib.nullcontext()
-        control = ddp_run(torch, rank, 2, Path(tmp), steps=0)
+        control = ddp_run(torch, rank, 2, Path(tmp))
         if rank == 0:
             np.savez(Path(tmp) / "ddp_gloo.npz", **out)
             np.savez(Path(tmp) / "ddp_control.npz", **control)
@@ -1104,8 +1060,8 @@ def phase_ddp(torch, wp, rp, log_dir: Path, card: str) -> None:
     hold its losses, its BN running statistics and each network's gradient
     (one vector each) within `DDP_LIMITS` of float64 (relative); the
     control, the two ranks without sync-BN, must break at least one of
-    them.  Logs everything beside everything, and each one's ms/step; no
-    kernel launches (plain sampler)."""
+    them.  Logs everything beside everything; no kernel launches (plain
+    sampler)."""
     import dataclasses
 
     import numpy as np
@@ -1136,10 +1092,8 @@ def phase_ddp(torch, wp, rp, log_dir: Path, card: str) -> None:
                       and getattr(batch, f.name) is not None}
             batch = dataclasses.replace(batch, rgb=batch.rgb.to(dtype) / 255,
                                         rgb_aug=batch.rgb_aug.to(dtype) / 255, **floats)
-        losses = train_step(state, ddp_config(), batch)
-        runs[name] = ddp_snapshot(torch, state, losses,
-                                  lambda: train_step(state, ddp_config(), batch))
-        del model, state, batch, losses
+        runs[name] = ddp_snapshot(torch, state, train_step(state, ddp_config(), batch))
+        del model, state, batch
         torch.cuda.empty_cache()
 
     make_process_group(1, 0, "cuda", local_init_method())
@@ -1173,8 +1127,7 @@ def phase_ddp(torch, wp, rp, log_dir: Path, card: str) -> None:
             + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
             + (("; against the float32 train_step: "
                 + ", ".join(f"{k} {v:.3g}" for k, v in between.items())) if between else "")
-            + f"; {float(got['ms']):.2f} ms/step (host clock, {DDP_STEPS} steps; "
-            f"float64 train_step {float(want['ms']):.2f}) [{card}]")
+            + f" [{card}]")
     err = errors(control, want)
     caught = [k for k, limit in DDP_LIMITS.items() if not err[k] <= limit]
     if not caught:
@@ -1236,10 +1189,7 @@ def phase_rungs(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict
     consolidation (3 in 16 frames); the async rung 5 K1b once a frame and
     K1a 3 times per launched update, with 1 <= adopted <= launched.  Every
     loss finite.  Returns name -> numbers of the rung."""
-    import numpy as np
-
     from tpuslam_torch.cli import rungs
-    from tpuslam_torch.slam import Slam
 
     out = {}
     run = rungs._run
@@ -1248,29 +1198,21 @@ def phase_rungs(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict
         reset_launches()
         with PathGuard(wp, rp, captured.setdefault(name, {})):
             slam = run(name, cfg, dataset, diagnostics, device)
-        warm = slam.step_times[5:]
         gen = slam.generalist_state
         out[name] = dict(
-            launches=read_launches(), frames=len(slam.step_times),
-            ms=1e3 * float(np.mean(warm)), launched=slam.async_updates_launched,
-            adopted=slam.async_updates_adopted, consolidations=gen.step if gen else 0,
+            launches=read_launches(), frames=len(slam.depth_loss),
+            launched=slam.async_updates_launched, adopted=slam.async_updates_adopted,
+            consolidations=gen.step if gen else 0,
             finite=all(math.isfinite(v) for v in slam.depth_loss + slam.velocity_loss),
             loops=slam.pose_graph.num_loop_closures)
         return slam
 
-    consolidate, consolidate_ms = Slam._consolidate_generalist, []
-
-    def timed_consolidate(self):  # host time: the frame is host-bound
-        t0 = time.perf_counter()
-        consolidate(self)
-        consolidate_ms.append(1e3 * (time.perf_counter() - t0))
-
-    rungs._run, Slam._consolidate_generalist = counted, timed_consolidate
+    rungs._run = counted
     try:
         rungs.main(["--height", str(H), "--width", str(W), "--frames", str(RUNG_FRAMES),
                     "--rungs", "1,2,3,4,5", "--device", "cuda", "--log", str(log_dir / "rungs")])
     finally:
-        rungs._run, Slam._consolidate_generalist = run, consolidate
+        rungs._run = run
     for name, r in out.items():
         # rung 5 chains two worlds of RUNG_FRAMES // 2 frames
         n = 2 * (RUNG_FRAMES // 2) if name.startswith("rung 5") else RUNG_FRAMES
@@ -1290,18 +1232,13 @@ def phase_rungs(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> dict
             if r["consolidations"] != n // 5:  # every 5th frame (`generalist_interval`)
                 raise AssertionError(f"{name}: {r['consolidations']} consolidations, "
                                      f"not {n // 5}")
-            extra = (f", {r['consolidations']} generalist consolidations, host "
-                     + " / ".join(f"{ms:.1f}" for ms in consolidate_ms) + " ms each")
+            extra = f", {r['consolidations']} generalist consolidations"
         if name.startswith("rung 5:"):
             if not 1 <= r["adopted"] <= r["launched"]:
                 raise AssertionError(f"{name}: launched {r['launched']}, adopted {r['adopted']}")
             extra = f", updates launched {r['launched']}, adopted {r['adopted']}"
         log("rungs", f"{name}: launches { {k: v for k, v in r['launches'].items() if v} }, "
-            f"steady {r['ms']:.2f} ms/frame (frames 6-{n}), loop edges {r['loops']}{extra} "
-            f"[{card}]")
-    a, b = out["rung 5: CoVIO async, 2-domain chain"], out["rung 5 sync ablation (same config)"]
-    log("rungs", f"rung 5 async / sync, same call: steady {a['ms']:.2f} / {b['ms']:.2f} "
-        f"ms/frame ({100 * (a['ms'] / b['ms'] - 1):+.1f}%) [{card}]")
+            f"loop edges {r['loops']}{extra} [{card}]")
     return out
 
 
@@ -1317,10 +1254,9 @@ def phase_async_check(torch, log_dir: Path, card: str) -> None:
     after it.  With K = 5 the same pair is logged beside two runs on the
     current stream: cuDNN's backward sums in no fixed order, and five Adam
     steps carry that to ~1e-3, on one stream as on two.  Whether the update
-    was still running on the device when the eval was issued is logged: the
-    update's device work ends behind the host's launches (the frame is
-    host-bound), and a stream held busy to force the overlap blocks the
-    host once many launches wait on it."""
+    was still running on the device when the eval was issued is logged; no
+    stream is held busy to force the overlap, since the host then waits in
+    the update's launches."""
     from tpuslam_torch.slam import Slam
     from tpuslam_torch.train.state import clone_train_state
     from tpuslam_torch.train.steps import consolidate_step, consolidate_step_async, eval_step
@@ -1344,9 +1280,7 @@ def phase_async_check(torch, log_dir: Path, card: str) -> None:
     err, running = {}, {}
     for K in (1, 5):
         ref, ref2 = clone_train_state(S), clone_train_state(S)
-        t0 = time.perf_counter()
         clone, event = consolidate_step_async(S, cfg, batch, K, stream)
-        launch_ms = 1e3 * (time.perf_counter() - t0)
         running[K] = not event.query()
         _, during = eval_step(S.model, cfg, online)
         event.synchronize()
@@ -1359,7 +1293,6 @@ def phase_async_check(torch, log_dir: Path, card: str) -> None:
         err[f"K{K}_update_size"] = rel_err(decoders(clone), decoders(S))
         err[f"K{K}_served_equal"] = torch.equal(during[("retire_packed",)],
                                                 after[("retire_packed",)])
-        err[f"K{K}_launch_ms"] = launch_ms
     same_s = all(torch.equal(v, before[k]) for k, v in S.model.state_dict().items())
     same_adam = all(torch.equal(v, w) for v, w in zip(
         [v for st in S.optimizer.state.values() for v in st.values()], adam_before))
@@ -1370,24 +1303,11 @@ def phase_async_check(torch, log_dir: Path, card: str) -> None:
         log("async check", f"K={K} update on the side stream vs on the current stream: decoders "
             f"relative {err[f'K{K}_side_vs_current']:.3g}, two runs on the current stream "
             f"{err[f'K{K}_current_vs_current']:.3g} (the update moved them "
-            f"{err[f'K{K}_update_size']:.3g}); host launch {err[f'K{K}_launch_ms']:.1f} ms; the "
-            f"update was {'still' if running[K] else 'no longer'} running on the device when "
-            f"the serving eval_step was issued, whose readback equals one after the wait bit "
-            f"for bit [{card}]")
+            f"{err[f'K{K}_update_size']:.3g}); the update was "
+            f"{'still' if running[K] else 'no longer'} running on the device when the serving "
+            f"eval_step was issued, whose readback equals one after the wait bit for bit "
+            f"[{card}]")
     log("async check", "the source state's networks and Adam state are unchanged bit for bit")
-    # why no side stream is held busy above to force the overlap: the host
-    # then waits in the update's launches
-    probe = clone_train_state(S)
-    torch.cuda.synchronize()
-    with torch.cuda.stream(stream):
-        torch.cuda._sleep(1_000_000_000)  # ~0.5 s of the side stream
-        t0 = time.perf_counter()
-        consolidate_step(probe, cfg, batch, 1)
-        held_ms = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    log("async check", f"with the side stream held by a sleep kernel of 1e9 cycles, the host "
-        f"launch of a K=1 update takes {held_ms:.1f} ms ({err['K1_launch_ms']:.1f} ms above with "
-        f"the stream free) [{card}]")
 
 
 def phase_cli_adapt(torch, wp, rp, main_slam, log_dir: Path, captured: dict, card: str) -> None:
@@ -1452,13 +1372,11 @@ def phase_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> d
     """`Pretrainer` at 192 x 640, ResNet-18, batch 18 (its defaults), on the
     K1a route (`pallas_warp=True`) and the plain sampler: one epoch of 5
     `train_step`s and a `validate` over 2 batches, whose launches must be 5
-    K1a (N = 144) and 2 K1b on the K1a route and none on the plain one; then
-    a second epoch of 5 steps timed (host clock, ended by the epoch's loss
-    read: steady ms/step), and a third of 3 steps under torch.profiler.
-    The splits cycle over 24 synthetic frames, made once."""
+    K1a (N = 144) and 2 K1b on the K1a route and none on the plain one, with
+    each route's peak memory.  The splits cycle over 24 synthetic frames,
+    made once.  Returns the K1a route's launches."""
     from tpuslam_torch.data.synthetic import SyntheticDataset
     from tpuslam_torch.train.pretrain import Pretrainer
-    from torch.profiler import ProfilerActivity, profile
 
     world = SyntheticDataset(num_frames=PRETRAIN_POOL, height=H, width=W, do_augmentation=True)
     pool = [world[i] for i in range(len(world))]
@@ -1470,46 +1388,22 @@ def phase_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> d
         trainer = Pretrainer(height=H, width=W, batch_size=PRETRAIN_B, pallas_warp=pallas,
                              log_path=log_dir / "pretrain", device="cuda")
         reset_launches()
-        t0 = time.perf_counter()
         with PathGuard(wp, rp, captured if pallas else {}):
             loss = trainer.train_epoch(pretrain_split(pool, 5 * PRETRAIN_B), progress=False)
             val = trainer.validate(pretrain_split(pool, 2 * PRETRAIN_B))
-        first_s = time.perf_counter() - t0
         launches = read_launches()
         peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
         if not (math.isfinite(loss) and math.isfinite(val)):
             raise AssertionError(f"{phase}: loss {loss}, validation loss {val}")
         expect_launches(phase, launches,
                         {"warp_static_fused": 5, "warp_static": 2} if pallas else {})
-        t0 = time.perf_counter()
-        trainer.train_epoch(pretrain_split(pool, 5 * PRETRAIN_B), progress=False)
-        ms = 1e3 * (time.perf_counter() - t0) / 5
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.train_epoch(pretrain_split(pool, 3 * PRETRAIN_B), progress=False)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / 3
-        spans, by_name, busy_us = device_busy(prof)
-        busy_ms = busy_us / 1e3 / 3
-        idle = f"{1 - busy_ms / wall_ms:.3f}" if busy_ms > 0 else "not measured"
-        out[route] = dict(ms=ms, wall_ms=wall_ms, busy_ms=busy_ms, peak=peak, launches=launches)
-        top = ", ".join(f"{n[:50]} {us / 1e3 / 3:.3f}" for n, us in by_name.most_common(6))
-        log(phase, f"epoch of 5 steps + validate (2 batches) in {first_s:.2f} s, loss "
-            f"{loss:.5f}, validation loss {val:.5f}, launches "
-            f"{ {k: v for k, v in launches.items() if v} }; steady {ms:.2f} ms/step (host "
-            f"clock, 5 steps, batch prep included); profiled 3 steps: wall {wall_ms:.2f} "
-            f"ms/step, device busy {busy_ms:.2f} ms/step, idle share {idle}, "
-            f"{len(spans) / 3:.0f} device activities/step; peak memory {peak:.2f} GiB above "
-            f"the {held / 2 ** 30:.2f} GiB held before [{card}]")
-        log(phase, f"top device time, ms/step: {top}")
-        del trainer, prof
+        out[route] = launches
+        log(phase, f"epoch of 5 steps + validate (2 batches): loss {loss:.5f}, validation loss "
+            f"{val:.5f}, launches { {k: v for k, v in launches.items() if v} }; peak memory "
+            f"{peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB held before [{card}]")
+        del trainer
         torch.cuda.empty_cache()
-    a, b = out["K1a route"], out["plain route"]
-    log("pretrain", f"K1a route / plain route, same call: steady {a['ms']:.2f} / {b['ms']:.2f} "
-        f"ms/step; device busy {a['busy_ms']:.2f} / {b['busy_ms']:.2f} ms/step; peak memory "
-        f"{a['peak']:.2f} / {b['peak']:.2f} GiB [{card}]")
-    return out["K1a route"]["launches"]
+    return out["K1a route"]
 
 
 def phase_cli_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) -> None:
@@ -1555,69 +1449,6 @@ def phase_cli_pretrain(torch, wp, rp, log_dir: Path, captured: dict, card: str) 
         f"frames, batch 3) in {wall:.2f} s with no kernel launch (plain sampler): "
         f"{sorted(p.name for p in models.glob('weights_*'))}, best {best}; resumed at "
         f"epoch 2 through Pretrainer.load, epoch 3 loss {loss:.5f} [{card}]")
-
-
-def device_busy(prof):
-    """The device activities of a torch.profiler trace: their (start, end)
-    spans, their time by name (us), and the union of the spans (busy us)."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    by_name = Counter()
-    for e in events:
-        by_name[e.name] += e.time_range.end - e.time_range.start
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    return spans, by_name, busy_us
-
-
-def phase_profile(torch, slam, card: str, phase: str, frames: int = 3) -> dict:
-    """Where a frame's time goes: host time making the synthetic frame,
-    the rest of `Slam.step`, and the device's busy time (union of the
-    kernel and copy intervals that torch.profiler records) by kernel."""
-    from collections import Counter
-
-    from torch.profiler import ProfilerActivity, profile
-
-    data_s = 0.0
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            t = time.perf_counter()
-            sample = slam.dataset[slam.current_step]
-            data_s += time.perf_counter() - t
-            slam.step(sample)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    spans, by_name, busy_us = device_busy(prof)
-    wall_ms, busy_ms = 1e3 * wall_s / frames, busy_us / 1e3 / frames
-    if busy_ms <= 0.0:
-        log(phase, f"{wall_ms:.2f} ms/frame wall; device time not measured "
-            f"(the profiler recorded no device activity) [{card}]")
-        return dict(wall_ms=wall_ms)
-    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
-               activities=len(spans) / frames, data_ms=1e3 * data_s / frames)
-    top = ", ".join(f"{name[:60]} {us / 1e3 / frames:.3f}" for name, us in by_name.most_common(8))
-    ours = Counter()
-    for name, us in by_name.items():
-        for kernel in ("warp_kernel", "warp_grad_kernel", "err_fwd_kernel", "err_bwd_kernel"):
-            if kernel in name:
-                ours[kernel] += us
-    log(phase, f"{frames} frames: wall {wall_ms:.2f} ms/frame, synthetic frame "
-        f"{out['data_ms']:.2f} ms/frame, device busy {busy_ms:.2f} ms/frame "
-        f"(idle share {out['idle']:.3f}), {out['activities']:.0f} device "
-        f"activities/frame [{card}]")
-    log(phase, f"top device time, ms/frame: {top}")
-    log(phase, "the port's kernels, ms/frame: "
-        + ", ".join(f"{k} {us / 1e3 / frames:.3f}" for k, us in ours.items()))
-    return out
 
 
 def phase_reference(torch, log_dir: Path, tag: str, height=64, width=192, **pc):
@@ -1747,7 +1578,7 @@ def _grid_sample_ms(torch, src, coords):
         return F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="border",
                              align_corners=True)
 
-    return device_ms(torch, grid_sample, "grid_sampler"), time_ms(grid_sample)
+    return device_ms(torch, grid_sample, "grid_sampler"), back_to_back_ms(grid_sample)
 
 
 def _grid_sample_bwd_ms(torch, src, coords, g):
@@ -1763,14 +1594,14 @@ def _grid_sample_bwd_ms(torch, src, coords, g):
         return torch.ops.aten.grid_sampler_2d_backward(g_nchw, src_nchw, grid, 0, 1, True,
                                                         [False, True])
 
-    return device_ms(torch, backward, "grid_sampler_2d_backward"), time_ms(backward)
+    return device_ms(torch, backward, "grid_sampler_2d_backward"), back_to_back_ms(backward)
 
 
 def timed(torch, card, name, fn, plain, match, inputs, outputs, flops, err, lib=None,
           lib_name="grid_sample"):
     ms = device_ms(torch, fn, match)
-    warm_ms = time_ms(fn)
-    plain_ms = time_ms(plain)
+    warm_ms = back_to_back_ms(fn)
+    plain_ms = back_to_back_ms(plain)
     bms, by = bound_ms(inputs, outputs, flops)
     lib_ms, lib_warm = lib if lib is not None else (None, None)
     log("kernels", f"{name} at {tuple(outputs[0].shape)}: kernel {ms:.4f} ms (device, L2 flushed), "
@@ -1971,18 +1802,6 @@ def phase_kernels(torch, wp, rp, cap: dict, card: str) -> dict:
     return res
 
 
-def log_beside(phase: str, card: str, label: str, a, b) -> None:
-    """Two paths' frame numbers from one call, side by side: each a
-    (steady ms/frame, phase_profile result) pair."""
-    (a_ms, a_prof), (b_ms, b_prof) = a, b
-    if "busy_ms" in a_prof and "busy_ms" in b_prof:
-        log(phase, f"{label}, same call: steady {a_ms:.2f} / {b_ms:.2f} ms/frame; profiled "
-            f"wall {a_prof['wall_ms']:.2f} / {b_prof['wall_ms']:.2f} ms/frame; device busy "
-            f"{a_prof['busy_ms']:.2f} / {b_prof['busy_ms']:.2f} ms/frame; idle share "
-            f"{a_prof['idle']:.3f} / {b_prof['idle']:.3f}; device activities/frame "
-            f"{a_prof['activities']:.0f} / {b_prof['activities']:.0f} [{card}]")
-
-
 def main() -> int:
     import torch
 
@@ -1994,6 +1813,7 @@ def main() -> int:
     from tpuslam_torch.ops import reproj as rp
     from tpuslam_torch.ops import warp as wp
     from tpuslam_torch.posegraph import native as pg_native
+    from tpuslam_torch.tools.ab_common import card_line
 
     card = card_line()
     log("device", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 is "
@@ -2020,48 +1840,41 @@ def main() -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         log_dir = Path(tmp)
-        k1_launches, slam, k1_ms = run_adapt_path(
+        k1_launches, slam = run_adapt_path(
             torch, wp, rp, "main", log_dir, cap.setdefault("main", {}), card, 8, k1_taps)
-        k1_prof = phase_profile(torch, slam, card, "profile")
         phase_cli_adapt(torch, wp, rp, slam, log_dir, cap.setdefault("cli adapt", {}), card)
         del slam
         eval_launches = run_eval_path(torch, wp, rp, "eval", log_dir, cap.setdefault("eval", {}),
                                       {"warp_static": 2})
-        two_launches, slam, two_ms = run_adapt_path(
+        two_launches, slam = run_adapt_path(
             torch, wp, rp, "two-kernel main", log_dir, cap.setdefault("two-kernel main", {}),
             card, 8, two_kernel, pallas_fused_grad=False)
-        two_prof = phase_profile(torch, slam, card, "two-kernel profile")
         del slam
-        log_beside("two-kernel profile", card, "K1 path / two-kernel path",
-                   (k1_ms, k1_prof), (two_ms, two_prof))
         run_eval_path(torch, wp, rp, "two-kernel eval", log_dir,
                       cap.setdefault("two-kernel eval", {}), {"warp_static": 2},
                       pallas_fused_grad=False)
-        packed_launches, slam, _ = run_adapt_path(
+        packed_launches, slam = run_adapt_path(
             torch, wp, rp, "packed main", log_dir, cap.setdefault("packed main", {}), card, 4,
             truncated, pallas_packed=True)
         del slam
-        _, slam, _ = run_adapt_path(
+        _, slam = run_adapt_path(
             torch, wp, rp, "seg-skip main", log_dir, cap.setdefault("seg-skip main", {}), card,
             2, truncated, pallas_seg_skip=True)
         del slam
         phase_predictor(torch, wp, rp, log_dir, cap.setdefault("predictor", {}), card)
-        fused_launches, slam, fused_ms = run_adapt_path(
+        fused_launches, slam = run_adapt_path(
             torch, wp, rp, "fused main", log_dir, cap.setdefault("fused main", {}), card, 8,
             fused_main, **FUSED)
-        fused_prof = phase_profile(torch, slam, card, "fused profile")
         del slam
-        log_beside("fused profile", card, "K1 path / fused stack", (k1_ms, k1_prof),
-                   (fused_ms, fused_prof))
         fused_eval_launches = run_eval_path(
             torch, wp, rp, "fused eval", log_dir, cap.setdefault("fused eval", {}),
             {"warp_tall_proj_notaps": 2, "reproj_err": 2}, **FUSED)
-        fused_loss_launches, slam, _ = run_adapt_path(
+        fused_loss_launches, slam = run_adapt_path(
             torch, wp, rp, "fused loss", log_dir, cap.setdefault("fused loss", {}), card, 4,
             fused_loss, pallas_tall=True, pallas_fused_loss=True)
         del slam
-        lc_ms = phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card, k1_ms)
-        phase_lc_mobilenet(torch, wp, rp, log_dir, card, lc_ms)
+        phase_lc_main(torch, wp, rp, log_dir, cap.setdefault("lc main", {}), card)
+        phase_lc_mobilenet(torch, wp, rp, log_dir, card)
         phase_rungs(torch, wp, rp, log_dir, cap.setdefault("rungs", {}), card)
         phase_async_check(torch, log_dir, card)
         pretrain_launches = phase_pretrain(torch, wp, rp, log_dir, cap.setdefault("pretrain", {}),
