@@ -137,7 +137,8 @@ def test_h2d_bytes_are_the_bytes_shipped(with_aug):
     """`h2d_bytes` after one `make_frame_batch` is the bytes of the tensors
     it made from host arrays (the augmented images only where given: without
     them the batch reuses the shipped `rgb`); the float images go through
-    the rounding span `data.to_uint8`."""
+    the rounding span `data.to_uint8`, whose compiled pass counts its
+    values."""
     rng = np.random.default_rng(0)
     B, H, W = 2, 8, 16
     rgb = rng.uniform(size=(B, 3, H, W, 3)).astype(np.float32)
@@ -151,7 +152,8 @@ def test_h2d_bytes_are_the_bytes_shipped(with_aug):
     else:
         assert batch.rgb_aug is batch.rgb
     snap = tracing.snapshot()
-    assert snap["counters"] == {"h2d_bytes": sum(t.numel() * t.element_size() for t in shipped)}
+    assert snap["counters"] == {"h2d_bytes": sum(t.numel() * t.element_size() for t in shipped),
+                                "to_uint8_values": (1 + with_aug) * rgb.size}
     assert snap["spans"]["data.to_uint8"]["count"] == 1 + with_aug
     assert snap["spans"]["data.frame_batch"]["count"] == 1
 

@@ -1,5 +1,5 @@
 """Build and load the port's native libraries: the CUDA kernels and the
-host's colour jitter.
+host's colour jitter and uint8 rounding.
 
 Each source in `csrc/` is compiled into a shared library with a plain C
 interface, under `build/`, named by the hash of the source and its flags, at
@@ -32,6 +32,8 @@ SOURCES = {
     "reproj": ("reproj.cu", ("-fmad=false",)),
     # rounds like the numpy colour jitter, op by op
     "jitter": ("jitter.cpp", ("-ffp-contract=off",)),
+    # rounds like numpy's float32 expression
+    "to_uint8": ("to_uint8.cpp", ("-ffp-contract=off",)),
 }
 
 # seconds the compiler took for each library built by this process

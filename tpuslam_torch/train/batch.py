@@ -10,6 +10,7 @@ None stands for the JAX package's all-zero mask.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -19,6 +20,36 @@ import torch
 from tpuslam_torch import tracing
 
 FRAME_AXIS = (-1, 0, 1)
+
+_to_uint8_lib: Optional[ctypes.CDLL] = None
+
+
+def _to_uint8_library() -> ctypes.CDLL:
+    """The uint8 rounding's library, built by the host compiler at first use."""
+    global _to_uint8_lib
+    if _to_uint8_lib is None:
+        from tpuslam_torch.ops import build
+
+        lib = build.load_library("to_uint8")
+        lib.tpuslam_to_uint8.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+        lib.tpuslam_to_uint8.restype = None
+        _to_uint8_lib = lib
+    return _to_uint8_lib
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """`np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)`, bytes for
+    bytes: float32 images in one compiled pass (`csrc/to_uint8.cpp`, counted
+    by the tracer as `to_uint8_values`), other dtypes by the expression
+    itself, whose product rounds in their own precision."""
+    if img.dtype != np.float32:
+        return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+    src = np.ascontiguousarray(img)
+    out = np.empty(src.shape, np.uint8)
+    _to_uint8_library().tpuslam_to_uint8(src.ctypes.data, out.ctypes.data, src.size)
+    if tracing.on:
+        tracing.count("to_uint8_values", src.size)
+    return out
 
 
 @dataclasses.dataclass
@@ -65,9 +96,9 @@ def make_frame_batch(
 ) -> FrameBatch:
     """Host arrays -> a FrameBatch on `device` (aug defaults to rgb, weights
     to uniform, the mask to None).  Images ship as uint8, float inputs
-    rounded to the nearest 1/255 level (span `data.to_uint8`).  The bytes
-    handed to `device` add to the tracer's counter `h2d_bytes` (on the CPU
-    too, where nothing is copied)."""
+    rounded to the nearest 1/255 level by `to_uint8` (span
+    `data.to_uint8`).  The bytes handed to `device` add to the tracer's
+    counter `h2d_bytes` (on the CPU too, where nothing is copied)."""
     from tpuslam_torch import resolve_device
 
     device = resolve_device(device)
@@ -89,7 +120,7 @@ def make_frame_batch(
         img = np.asarray(img)
         if img.dtype != np.uint8:
             with tracing.span("data.to_uint8"):
-                img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+                img = to_uint8(img)
         return ship(np.ascontiguousarray(img))
 
     prgb = prep(rgb)
