@@ -15,7 +15,9 @@ program's own readings, "sound"), then, on the same inputs, for the first
   reference put in its place: "half_batch" (half of each batch's rows left
   out, the loss their mean over the rest), "answer_altered" (each retired
   pose inverted, or each step's loss from the step before), "state_unchanged"
-  (the training state handed back as it came).
+  (the training state handed back as it came); for CoVIO's asynchronous
+  mode also "stale_served" (each kept frame served from the output of the
+  update before the last one adopted).
 `--look` adds, for every seed of a SLAM cell, the reference with bf16
 convolutions against the float32 one on the same program state ("ref_bf16"),
 and the leaves that read the widest change gaps on both sides, with each
@@ -97,6 +99,80 @@ def slam_look(kept: dict) -> dict:
             "leaves_ref_bf16": widest_leaves(bf16, want, program)}
 
 
+def covio_readings(kept: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from portbench.lib import covio_cell as cc
+    from portbench.lib import env
+    from portbench.lib.weights import encoder_depths, seeded_state_dict
+
+    program, stream, cfg, seeds, want = (kept[k] for k in ("program", "stream", "cfg", "seeds",
+                                                           "want"))
+    out = {"control": cc.compare_answers(
+        cc.reference_answers(program, stream, cfg, seeds, precision="control"), want)}
+    prog = cc.program_answers(program, stream)
+    altered = dict(prog, pose={k: (np.linalg.inv(v) if v is not None else v)
+                               for k, v in prog["pose"].items()})
+    out["answer_altered"] = cc.compare_answers(altered, want)
+    unchanged = dict(prog, moved={k: {n: 0.0 for n in v} for k, v in prog["moved"].items()})
+    out["state_unchanged"] = cc.compare_answers(unchanged, want)
+
+    def halve(b):
+        w = torch.zeros_like(b.weights)
+        half = max(1, b.weights.shape[0] // 2)
+        w[:half] = 1.0 / half
+        return dataclasses.replace(b, weights=w)
+
+    halved = dict(program, served={k: dict(c, batch=halve(c["batch"]))
+                                   for k, c in program["served"].items()},
+                  updates={u: dict(c, batch=halve(c["batch"]))
+                           for u, c in program["updates"].items()})
+    out["half_batch"] = cc.compare_answers(
+        cc.reference_answers(halved, stream, cfg, seeds), want)
+    sd = seeded_state_dict(seeds[2], cfg.depth_pose.scales, env.DEVICE,
+                           *encoder_depths(vars(cfg.depth_pose)))
+
+    def stale(c):
+        if c["stale"] is None:
+            return c
+        old = sd if isinstance(c["stale"], str) else cc.unflat(c["stale"], program["shapes"])
+        return dict(c, decoders={n: old[n].clone() for n in c["decoders"]})
+
+    staled = dict(program, served={k: stale(c) for k, c in program["served"].items()})
+    out["stale_served"] = cc.compare_answers(
+        prog, cc.reference_answers(staled, stream, cfg, seeds))
+    return out
+
+
+def covio_look(kept: dict) -> dict:
+    """The reference with bf16 convolutions against the float32 one, and the
+    leaves of the kept updates with the widest change gaps on both sides."""
+    import numpy as np
+
+    from portbench.lib import covio_cell as cc
+
+    program, stream, cfg, seeds, want = (kept[k] for k in ("program", "stream", "cfg", "seeds",
+                                                           "want"))
+    prog = cc.program_answers(program, stream)
+    bf16 = cc.reference_answers(program, stream, cfg, seeds, precision="bf16")
+
+    def leaves(side, count=3):
+        rows = []
+        for u, ref in want["moved"].items():
+            grads = want["grad"][u]
+            median = float(np.median(list(grads.values())))
+            keep = [n for n in ref if grads.get(n, 0.0) >= 1e-3 * median]
+            floor = float(np.median([ref[n] for n in keep]))
+            sizes = program["updates"][u]["before"]["params"]
+            rows += [[u, n, abs(side["moved"][u][n] - ref[n]) / max(ref[n], floor, 1e-30), ref[n],
+                      side["moved"][u][n], sizes[n].numel(), grads[n] / median] for n in keep]
+        return sorted(rows, key=lambda r: -r[2])[:count]
+
+    return {"ref_bf16": cc.compare_answers(bf16, want), "leaves_program": leaves(prog),
+            "leaves_ref_bf16": leaves(bf16)}
+
+
 def pretrain_readings(kept: dict) -> dict:
     from portbench.lib import pretrain_cell as pc
 
@@ -127,6 +203,17 @@ def pretrain_readings(kept: dict) -> dict:
     return out
 
 
+def readings_for(config: dict, cell: dict) -> tuple:
+    """(readings, look) of the cell's driver; look is None for pretraining."""
+    if config["entry"] != "slam":
+        return pretrain_readings, None
+    from portbench.lib import slam_cell
+
+    if slam_cell.driver(config, cell) is slam_cell:
+        return slam_readings, slam_look
+    return covio_readings, covio_look
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -146,12 +233,11 @@ def main(argv=None) -> int:
         cell = dict(cell, overrides={**cell.get("overrides", {}), **json.loads(args.override)})
     config = spec.config(cell["config"])
     traffic = spec.traffic(cell["traffic"])
+    readings, look = readings_for(config, cell)
     if config["entry"] == "slam":
         from portbench.lib import slam_cell as driver
-        readings = slam_readings
     else:
         from portbench.lib import pretrain_cell as driver
-        readings = pretrain_readings
     rows = []
     for n, seed in enumerate(int(s) for s in args.seeds.split(",")):
         t = time.perf_counter()
@@ -161,8 +247,8 @@ def main(argv=None) -> int:
                "e2e": res["e2e"], "setup_s": res["setup_s"]}
         if n < args.control_seeds:
             row.update(readings(res["kept"]))
-        if args.look and config["entry"] == "slam":
-            row.update(slam_look(res["kept"]))
+        if args.look and look is not None:
+            row.update(look(res["kept"]))
         del res
         env.free()
         row["seconds"] = time.perf_counter() - t

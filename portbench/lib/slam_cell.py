@@ -12,6 +12,9 @@ A frame's latency runs from its hand-over to `Slam.step` to the return of the
 public call that retires it: with `pipeline_depth` N, `step(t + N)`, or the
 closing `flush_pipeline()` for the last N frames.
 
+With `async_adaptation` on (CoVIO's asynchronous mode) the frames are driven
+and checked by `covio_cell` instead, after the same set-up.
+
 What `correct` compares (against `portbench/reference`, float32, TF32 off):
 the first three adapted frames of set-up and two frames of the window drawn
 from the seed.  The reference follows the program step by step from the
@@ -27,6 +30,7 @@ stream's, byte for byte.
 from __future__ import annotations
 
 import math
+import sys
 import time
 from typing import Dict
 
@@ -139,7 +143,8 @@ def wrap_spans(spans: Spans) -> None:
     from tpuslam_torch.memory.replay_buffer import ReplayBuffer
     from tpuslam_torch.posegraph.graph import PoseGraph
 
-    for name in ("adapt_step", "eval_step", "embed", "predict_pose_step"):
+    for name in ("adapt_step", "eval_step", "embed", "predict_pose_step",
+                 "consolidate_step_async"):
         spans.wrap(sm, name, f"steps.{name}")
     spans.wrap(sm, "make_frame_batch", "data.make_frame_batch")
     spans.wrap(sm.Slam, "step", "entry.step")
@@ -185,15 +190,26 @@ def run(args, cell: dict, spec: dict, traffic: dict, result: dict) -> dict:
     slam.state.model.load_state_dict(seeded_state_dict(
         seeds[2], cfg.depth_pose.scales, env.DEVICE, *encoder_depths(vars(cfg.depth_pose))))
     setup["weights_s"] = time.perf_counter() - t
-    program = drive(slam, stream, cell, seeds, args, result, setup)
+    mode = driver(spec, cell)
+    program = mode.drive(slam, stream, cell, seeds, args, result, setup)
     result["run"].update(spec=spec, settings=settings(spec, cell))
     del slam
     env.free()
-    want = reference_answers(program, stream, cfg, seeds)
-    result["numbers"] = compare_answers(program_answers(program, stream), want)
+    want = mode.reference_answers(program, stream, cfg, seeds)
+    result["numbers"] = mode.compare_answers(mode.program_answers(program, stream), want)
     result["kept"] = {"program": program, "stream": stream, "cfg": cfg, "seeds": seeds,
                       "want": want}
     return result
+
+
+def driver(spec: dict, cell: dict):
+    """The module that drives and checks the frames: this one, or
+    `covio_cell` where the settings turn `async_adaptation` on."""
+    if settings(spec, cell)["Slam"].get("async_adaptation"):
+        from portbench.lib import covio_cell
+
+        return covio_cell
+    return sys.modules[__name__]
 
 
 def make_stream(spec: dict, traffic: dict, seeds):

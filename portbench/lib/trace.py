@@ -9,7 +9,8 @@ was doing.  `unwrap` puts every attribute back.
 reduces the trace: the device's busy time as the union of its activity
 intervals (copied from `chip_smoke.py::device_busy`), the device time by
 kernel name, the number of device activities, and the idle gaps between
-activities, each named by the innermost annotated host span around it.
+activities, each named by the innermost annotated host span around it; on
+request also each stream's activities, by the stream id the trace gives.
 """
 from __future__ import annotations
 
@@ -79,9 +80,36 @@ def busy_union(spans) -> float:
     return busy
 
 
-def profile_slice(run_units: Callable[[], int], spans: Optional[Spans]) -> dict:
+def merge(spans) -> list:
+    """The union of (start, end) intervals as disjoint intervals, in order."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def overlap(a, b) -> float:
+    """Length of the intersection of the unions of two interval lists."""
+    a, b = merge(a), merge(b)
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profile_slice(run_units: Callable[[], int], spans: Optional[Spans],
+                  streams: bool = False) -> dict:
     """Profile `run_units()` (which runs and returns its frame or step count,
-    ending in a synchronize) and reduce its trace.  Times in seconds."""
+    ending in a synchronize) and reduce its trace.  Times in seconds.  With
+    `streams`, `streams` maps each stream id to its activities as (start,
+    end, name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -101,10 +129,10 @@ def profile_slice(run_units: Callable[[], int], spans: Optional[Spans]) -> dict:
     events = prof.events()
     # device activities only: record_function ranges also appear on the
     # device's timeline as user annotations, and are no device work
-    device = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
-                     if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)
-                     and not e.name.startswith(("pb:", "Optimizer.", "ProfilerStep"))),
+    activities = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith(("pb:", "Optimizer.", "ProfilerStep"))]
+    device = sorted(((e.time_range.start, e.time_range.end, e.name) for e in activities),
                     key=lambda x: x[0])
     by_name, count_by_name = Counter(), Counter()
     for s, e, n in device:
@@ -124,6 +152,13 @@ def profile_slice(run_units: Callable[[], int], spans: Optional[Spans]) -> dict:
         elif s > end:
             gaps["gaps under 10 us"] += (s - end) / 1e6
         end = max(end, e)
-    return {"units": units, "wall_s": wall, "busy_s": busy, "activities": len(device),
-            "by_name": dict(by_name), "count_by_name": dict(count_by_name),
-            "idle_by_host": dict(gaps)}
+    out = {"units": units, "wall_s": wall, "busy_s": busy, "activities": len(device),
+           "by_name": dict(by_name), "count_by_name": dict(count_by_name),
+           "idle_by_host": dict(gaps)}
+    if streams:
+        by_stream = defaultdict(list)
+        for e in activities:
+            by_stream[getattr(e, "device_resource_id", None)].append(
+                (e.time_range.start / 1e6, e.time_range.end / 1e6, e.name))
+        out["streams"] = dict(by_stream)
+    return out

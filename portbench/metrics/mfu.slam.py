@@ -11,36 +11,15 @@ their forward once.  Work the program recomputes is not counted."""
 
 
 def frame_flops(settings: dict) -> float:
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
+    from portbench.lib.flops import slam_parts
 
-    from portbench.lib.weights import encoder_depths
-    from portbench.reference.nets import DepthPoseNet
-
-    ds, pc, sl = settings["Dataset"], settings["DepthPosePrediction"], settings["Slam"]
-    H, W = ds["height"], ds["width"]
-    adapting = sl["adaptation"]
-    B = pc["batch_size"] if adapting else 1
-    depth, pose = encoder_depths(pc)
-    with torch.device("meta"):
-        net = DepthPoseNet(tuple(pc["scales"]), depth, resnet_pose=pose)
-        images = torch.zeros(B, H, W, 3)
-        pairs = torch.zeros(2 * B, H, W, 6)
-        online = torch.zeros(1, H, W, 3)
-    with FlopCounterMode(display=False) as count:
-        with torch.no_grad():
-            feats = net.depth_encoder(images)
-            pose_feat = net.pose_encoder(pairs)[-1]
-            if sl.get("do_loop_closures", True):
-                net.depth_encoder(online)
-    encoders = count.get_total_flops()
-    with FlopCounterMode(display=False) as count:
-        disps = net.depth_decoder([f.detach() for f in feats])
-        aa, tr = net.pose_decoder(pose_feat.detach())
-        if adapting:
-            (sum(d.sum() for d in disps.values()) + aa.sum() + tr.sum()).backward()
-    decoders = count.get_total_flops()
-    return float(encoders + (sl["adaptation_epochs"] if adapting else 1) * decoders)
+    pc, sl = settings["DepthPosePrediction"], settings["Slam"]
+    if not sl["adaptation"]:
+        parts = slam_parts(settings, 1)
+        return float(parts["encoders"] + parts["embed"] + parts["decode"])
+    parts = slam_parts(settings, pc["batch_size"])
+    return float(parts["encoders"] + parts["embed"]
+                 + sl["adaptation_epochs"] * parts["decode_train"])
 
 
 def read(run):

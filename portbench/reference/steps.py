@@ -93,6 +93,17 @@ def adapt_frame(net: DepthPoseNet, opt: Adam, batch: Dict[str, torch.Tensor], cf
     return torch.stack(losses), T_next[0].detach(), pooled(depth_feats[-1])[0]
 
 
+@torch.no_grad()
+def serve_frame(net: DepthPoseNet, batch: Dict[str, torch.Tensor], cfg: dict):
+    """One served frame: the frozen encoders and the decoders' forward once,
+    with no tie-break noise.  Returns the losses, the online row's
+    T(0 -> +1) and its replay embedding."""
+    depth_feats = net.depth_encoder(frame(batch["rgb_aug"], 0))
+    pose_feat = net.pose_encoder(pose_pairs(batch["rgb_aug"]))[-1]
+    out, T_next = _loss(net, batch, depth_feats, pose_feat, cfg, None)
+    return out, T_next[0], pooled(depth_feats[-1])[0]
+
+
 def stagewise(net: DepthPoseNet, batch: Dict[str, torch.Tensor], cfg: dict,
               decoder_weights: List[Dict[str, torch.Tensor]], rng: Optional[torch.Generator]):
     """Each adaptation iteration's forward from the decoder weights it ran

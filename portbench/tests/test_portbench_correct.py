@@ -12,6 +12,11 @@ from tiny import run_cell, shrink
 
 FAULTS = [("adapt-kitti-seq", "state_unchanged"), ("adapt-kitti-seq", "half_batch"),
           ("adapt-kitti-seq", "answer_altered"),
+          ("adapt-kitti-covio-async", "state_unchanged"),
+          ("adapt-kitti-covio-async", "half_batch"),
+          ("adapt-kitti-covio-async", "answer_altered"),
+          ("adapt-kitti-covio-async", "stale_served"),
+          ("adapt-kitti-covio-async", "short_update"),
           ("pretrain-cityscapes-b18", "state_unchanged"),
           ("pretrain-cityscapes-b18", "half_batch"),
           ("pretrain-cityscapes-b18", "answer_altered")]
@@ -19,10 +24,31 @@ FAULTS = [("adapt-kitti-seq", "state_unchanged"), ("adapt-kitti-seq", "half_batc
 
 def plant(monkeypatch, cell: str, fault: str, active=lambda: True) -> None:
     """Break the program where the fault would be made, while `active()`."""
+    import tpuslam_torch.slam.slam as sm
     import tpuslam_torch.train.pretrain as pm
     import tpuslam_torch.train.steps as st
 
-    if fault == "state_unchanged":  # the optimizer step leaves the parameters as they are
+    if fault == "stale_served":  # each frame served from the state before the last adopted
+        adopt = sm.Slam._adopt
+
+        def keep_old(self):
+            self._stale_state = self.state
+            adopt(self)
+
+        def model(self):
+            return (getattr(self, "_stale_state", self.state) if active() else self.state).model
+
+        monkeypatch.setattr(sm.Slam, "_adopt", keep_old)
+        monkeypatch.setattr(sm.Slam, "model", property(model))
+    elif fault == "short_update":  # each update one iteration short
+        launch = sm.consolidate_step_async
+
+        def short(state, cfg, batch, num_steps, *args, **kwargs):
+            return launch(state, cfg, batch, num_steps - 1 if active() else num_steps, *args,
+                          **kwargs)
+
+        monkeypatch.setattr(sm, "consolidate_step_async", short)
+    elif fault == "state_unchanged":  # the optimizer step leaves the parameters as they are
         adam_step = torch.optim.Adam.step
 
         def still(self, closure=None):
@@ -61,7 +87,8 @@ def plant(monkeypatch, cell: str, fault: str, active=lambda: True) -> None:
         monkeypatch.setattr(st, "_pack_retire", altered)
 
 
-@pytest.mark.parametrize("cell", ["adapt-kitti-seq", "pretrain-cityscapes-b18"])
+@pytest.mark.parametrize("cell", ["adapt-kitti-seq", "pretrain-cityscapes-b18",
+                                  "adapt-kitti-covio-async"])
 def test_sound_run_is_correct(monkeypatch, cell):
     shrink(monkeypatch)
     line, _ = run_cell(cell)
@@ -105,9 +132,9 @@ def _control(monkeypatch, cell: str, device: str = "cpu"):
 
     shrink(monkeypatch, device)
     line, res = run_cell(cell)
-    slam = spec.config(spec.cell(cell)["config"])["entry"] == "slam"
-    readings = (controls.slam_readings if slam else controls.pretrain_readings)(res["kept"])
-    ok, checks = compare.judge(readings["control"], spec.cell(cell)["limits"])
+    c = spec.cell(cell)
+    readings = controls.readings_for(spec.config(c["config"]), c)[0](res["kept"])
+    ok, checks = compare.judge(readings["control"], c["limits"])
     return ok, checks
 
 
@@ -115,6 +142,12 @@ def test_control_is_not_correct(monkeypatch):
     """fp8 convolutions, forward and backward, and a warp stored a type
     below the configuration's, in the program's place."""
     ok, checks = _control(monkeypatch, "adapt-kitti-seq")
+    assert not ok, checks
+
+
+def test_covio_control_is_not_correct(monkeypatch):
+    """The same control in the place of CoVIO's served frames and updates."""
+    ok, checks = _control(monkeypatch, "adapt-kitti-covio-async")
     assert not ok, checks
 
 

@@ -19,7 +19,8 @@ import torch
 from tiny import CELLS, ROOT, run_cell, shrink
 
 DEVICE_METRICS = {"device_idle.slam", "device_idle.pretrain",
-                  "device_ops_per_frame.slam", "conv_device_ms.pretrain"}
+                  "device_ops_per_frame.slam", "conv_device_ms.pretrain",
+                  "update_device_ms.covio", "overlap_share.covio"}
 
 
 @pytest.mark.parametrize("trace", [0, 1])
@@ -89,9 +90,12 @@ def test_dry_run_at_resnet34(monkeypatch, cell):
     assert line["attempted"] > 0 and line["failed"] == 0
     assert all(v == v for v, _ in line["checks"].values())  # every number compared is read
     assert line["correct"], line["checks"]
-    slam = spec.config(spec.cell(cell)["config"])["entry"] == "slam"
-    readings = (controls.slam_readings if slam else controls.pretrain_readings)(res["kept"])
-    assert set(readings) == {"control", "answer_altered", "state_unchanged", "half_batch"}
+    c = spec.cell(cell)
+    readings, _ = controls.readings_for(spec.config(c["config"]), c)
+    faults = {"control", "answer_altered", "state_unchanged", "half_batch"}
+    if readings is controls.covio_readings:
+        faults.add("stale_served")
+    assert set(readings(res["kept"])) == faults
     assert drawn and set(drawn) == {(34, 34)}
     assert built and set(built) == {(34, 34)}
 

@@ -30,6 +30,8 @@ def shrink(monkeypatch, device: str = "cpu") -> None:
         if "check_window_steps" in c:
             c["check_window_steps"] = [[0, 1], [1, 2]]
         c["trace_slice"] = 2
+        if "warmup_frames" in c:
+            c["warmup_frames"] = min(c["warmup_frames"], 6)
         return c
 
     def tiny_config(name):
